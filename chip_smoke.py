@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100: the kernels are built for sm_90a), the CUDA
+toolkit's ``nvcc`` and the repository's sources next to this file.  It
+imports nothing of JAX or of the JAX package ``repro``.  Phases, in order;
+any failure exits non-zero before the result lines:
+
+1. Device: the card's name and power limit, TF32 off, kernel build time.
+2. Each hand-written kernel against its plain PyTorch version on the card,
+   at fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B attention shapes.
+3. Llama-2-7B at full width (bf16, 32 layers, random weights from a seed)
+   served through ``repro_torch.launch.serve.run_real``: online streams
+   arrive while an offline batch job runs on a pool small enough to force
+   preemption, so checkpoint gathers and resume restores run.  Kernel
+   launch counts are zeroed just before and read just after.
+4. Self-consistency of the port, at fp32 (same width and depth): greedy
+   tokens of a preempted run equal those of an uninterrupted run and of a
+   run with the prefix cache off, up to the first near-tie (a top-2 logit
+   margin below MARGIN_BOUND).  bf16 logits tie exactly too often for a
+   token comparison to say much.
+5. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches,
+   error against the plain version, time, plain time, bound and library
+   time, measured on the heaviest call of the main path (captured while it
+   ran; the kernel must agree with its plain version there), and for
+   attention the same at contexts of 2-4 thousand tokens (``long_context``).
+Last line: ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Kernel vs plain version on the card.  fp32: both sum in fp32 in another
+# order (errors of a few 1e-6 on outputs of magnitude <= 4).  bf16: both
+# compute in fp32 from the same bf16 inputs and round the output once, so
+# they can differ by one bf16 step of an output <= 4, i.e. 2**-6.
+TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=2**-6, rtol=2**-7)}
+# A greedy token is trusted only if its top-1 minus top-2 logit exceeds
+# this: two batch compositions run different cuBLAS reductions, which move
+# fp32 logits by about 1e-5 after 32 layers; phase 4 prints the largest
+# margin change it saw on tokens that agree, as evidence for the bound.
+MARGIN_BOUND = 1e-3
+# tokens each request of the served workload generates
+MAX_NEW = 48
+# FP32 outside the tensor cores and dense bf16 (NVIDIA H100 data sheet).
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed: {e}"
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+# --------------------------------------------------------------------- timing
+class Timer:
+    """CUDA-event timing of single launches with the 50 MB L2 flushed
+    before each one (a caller finds these pages cold); the median of
+    ``reps`` launches after ``warm`` untimed ones."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, reps: int = 25, warm: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+# ------------------------------------------------------------ phase 2 inputs
+def attention_case(torch, dtype, h, hkv, d, softcap, seed,
+                   q_lens=(32, 1, 9, 1, 1, 0), kv_lens=(32 + 131, 50, 9, 300, 1, 0),
+                   qmax=32):
+    """A ragged batch as the engine builds it.  The default is a mixed
+    batch: prefill chunks, q_len = 1 decodes, a padded sequence with
+    kv_len = 0, padded query slots at q_pos = 0, -1 table entries past each
+    sequence's pages."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    page = 16
+    s = len(q_lens)
+    m = max(-(-kv // page) for kv in kv_lens) + 2
+    n = s * m + 1
+    q = torch.randn((s, qmax, h, d), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((n, page, hkv, d), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((n, page, hkv, d), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(n - 1, generator=g, device="cuda")[: s * m].reshape(s, m)
+    tables = perm.to(torch.int32).clone()
+    q_pos = torch.zeros((s, qmax), dtype=torch.int32, device="cuda")
+    for i, (ql, kv) in enumerate(zip(q_lens, kv_lens)):
+        tables[i, -(-kv // page):] = -1
+        if ql:
+            q_pos[i, :ql] = torch.arange(kv - ql, kv, device="cuda")
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, tables, q_pos, kvl, float(softcap)
+
+
+def check_kernels(torch, ops, rpa, cg):
+    """Phase 2: every kernel against its plain version, fp32 and bf16."""
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
+            for cap in (0.0, 30.0):
+                q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d, cap, 1)
+                got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
+                want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                zero = got[-1].float().abs().max().item()
+                log(f"  ragged_paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} "
+                    f"softcap={cap:g}: max_abs_err={err:.3e} kv_len=0 rows max={zero:g}")
+                if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
+                    raise AssertionError(f"ragged_paged_attention disagrees ({dname}, {arch})")
+            g = torch.Generator(device="cuda").manual_seed(2)
+            pool = torch.randn((4, 33, 16, hkv, d), generator=g, device="cuda").to(dtype)
+            ids = torch.tensor([5, 2, 32, 9, 31, 32, 32, 0], dtype=torch.int32, device="cuda")
+            got = cg.checkpoint_gather(pool, ids)
+            torch.cuda.synchronize()
+            same = torch.equal(got, cg.checkpoint_gather_ref(pool, ids))
+            log(f"  checkpoint_gather {dname} {arch} pool={tuple(pool.shape)} "
+                f"ids={ids.tolist()}: exact={same}")
+            if not same:
+                raise AssertionError(f"checkpoint_gather disagrees ({dname}, {arch})")
+
+
+def attention_bound(torch, q, kp, tb, qp, kvl, peak_flops, hbm_bw):
+    """The least time of one attention call on these inputs: the bytes it
+    must move over the HBM rate, or its operations over the peak rate,
+    whichever is larger.  Counted from the data: q only for rows that keep
+    a key (a row that keeps none is written 0 without reading it), the whole
+    output, and for each sequence the K/V pages and table entries up to
+    min(kv_len, its largest q_pos + 1)."""
+    s, qmax, h, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    elt = q.element_size()
+    kv = kvl.long().cpu()
+    qpos = qp.long().cpu()
+    kept = torch.minimum(qpos + 1, kv[:, None]).clamp(min=0)  # keys kept per row
+    end = torch.minimum(kv, qpos.max(dim=1).values + 1).clamp(min=0)
+    pages = int(((end + page - 1) // page).sum())
+    nbytes = ((int((kept > 0).sum()) + q.numel() // (h * d)) * h * d * elt
+              + pages * 4 + qp.numel() * 4 + kvl.numel() * 4
+              + 2 * pages * page * hkv * d * elt)
+    flops = 4 * d * h * int(kept.sum())
+    t_b, t_f = nbytes / hbm_bw * 1e3, flops / peak_flops * 1e3
+    return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+# ------------------------------------------------------------ phase 3 and 4
+class Capture:
+    """Wraps a kernel-layer entry point on the main path: delegates every
+    call unchanged, and keeps a clone of the arguments of the heaviest call
+    (by ``size``; the first of equals) for the timing phase."""
+
+    def __init__(self, fn, size, clone):
+        self.fn, self.size, self.clone = fn, size, clone
+        self.best, self.args = -1, None
+
+    def __call__(self, *args, **kw):
+        n = self.size(*args)
+        if n > self.best:
+            self.best, self.args = n, self.clone(*args, **kw)
+        return self.fn(*args, **kw)
+
+
+class PagesRead:
+    """Size of an attention call: the K/V pages it reads, the sum over
+    sequences of ceil(kv_len / page).  The layers of one iteration share
+    one ``kv_lens`` tensor, so it is read back once per iteration."""
+
+    def __init__(self):
+        self.key, self.pages = None, 0
+
+    def __call__(self, q, kp, vp, tb, qp, kvl):
+        if kvl is not self.key:
+            page = kp.shape[1]
+            self.key, self.pages = kvl, int(((kvl.long() + page - 1) // page).sum())
+        return self.pages
+
+
+def serve(serve_mod, argv):
+    args = serve_mod.build_parser().parse_args(argv)
+    return serve_mod.run_real(args, record_margins=True)
+
+
+def offline_tokens(res):
+    eng = res["engine"]
+    return [(list(r.output_tokens), eng.margins[r.request_id]) for r in res["job"].requests]
+
+
+def compare_runs(name, a, b):
+    """Token identity up to the first near-tie, request by request."""
+    identical = near_tie = 0
+    drift = 0.0  # largest margin change on tokens both runs agree on
+    for i, ((ta, ma), (tb, mb)) in enumerate(zip(a, b)):
+        k = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+        same = len(ta) if k is None else k
+        drift = max([drift] + [abs(x - y) for x, y in zip(ma[:same], mb[:same])])
+        if k is None and len(ta) == len(tb):
+            identical += 1
+            continue
+        k = min(len(ta), len(tb)) if k is None else k
+        low = min(ma[: k + 1] + mb[: k + 1])
+        if low >= MARGIN_BOUND:
+            raise AssertionError(
+                f"{name}: request {i} diverged at token {k} with no near-tie "
+                f"(smallest margin up to there {low:.3e} >= {MARGIN_BOUND})"
+            )
+        near_tie += 1
+        log(f"  {name}: request {i} diverged at token {k} after a near-tie "
+            f"(margin {low:.3e} < {MARGIN_BOUND})")
+    log(f"  {name}: {identical} identical, {near_tie} diverged after a near-tie; "
+        f"largest margin change on agreeing tokens {drift:.3e}")
+
+
+def run_main_path(torch, ops, serve_mod, tf):
+    """Phase 3: the serve path at full width, kernels captured and counted."""
+    cap_rpa = Capture(
+        ops.ragged_paged_attention,
+        PagesRead(),
+        lambda q, kp, vp, tb, qp, kvl, logit_softcap=0.0: (
+            q.clone(), kp.clone(), vp.clone(), tb.clone(), qp.clone(), kvl.clone(),
+            logit_softcap),
+    )
+    cap_cg = Capture(
+        ops.checkpoint_gather,
+        lambda pool, ids: ids.numel(),
+        lambda pool, ids, out=None: (pool.clone(), ids.clone()),
+    )
+    ops.ragged_paged_attention, ops.checkpoint_gather = cap_rpa, cap_cg
+    argv = ["--full", "--device", "cuda", "--dtype", "bfloat16", "--online", "4",
+            "--offline", "8", "--prompt-len", "512", "--max-new", str(MAX_NEW),
+            "--online-after", "4"]
+    try:
+        ops.reset_launch_counts()
+        res = serve(serve_mod, argv + ["--num-device-blocks", "56"])
+        counts = ops.launch_counts()
+    finally:
+        ops.ragged_paged_attention, ops.checkpoint_gather = cap_rpa.fn, cap_cg.fn
+    eng, cfg = res["engine"], res["cfg"]
+    aborts = eng.safepoints.stats.preemptions
+    log(f"  {cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} heads={cfg.num_heads}"
+        f"/{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} dtype=bfloat16")
+    log(f"  steps={eng.steps} safepoint_aborts={aborts} preemptions={res['preemptions']} "
+        f"ckpt_blocks={eng.ckpt.stats.blocks_checkpointed} ckpt_gather_rounds={eng.ckpt_gathers} "
+        f"restored_blocks={eng.restored_blocks} cow_rounds={eng.cow_dispatches} "
+        f"fused_buckets={eng.fused_trace_count}")
+    log(f"  generated={res['generated']} tokens in {res['seconds']:.3f} s = "
+        f"{res['generated'] / res['seconds']:.1f} tok/s (host clock, includes every phase of serving)")
+    log(f"  launches: {counts}")
+    reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
+    short = [r.request_id for r in reqs if len(r.output_tokens) != MAX_NEW]
+    if short:
+        raise AssertionError(f"requests without all their tokens: {short}")
+    per_segment = cfg.num_layers // len(tf.segment_spans(cfg))
+    if counts["ragged_paged_attention"] != per_segment * eng.dispatches["fused_segment"]:
+        raise AssertionError("ragged_paged_attention launches != layers of the segments run")
+    if counts["ragged_paged_attention"] < cfg.num_layers * (eng.steps - aborts):
+        raise AssertionError("ragged_paged_attention launched fewer than 32 x completed steps")
+    if res["preemptions"] == 0 or counts["checkpoint_gather"] == 0 or eng.restored_blocks == 0:
+        raise AssertionError("the run did not preempt, checkpoint and restore")
+    return res, counts, argv, cap_rpa.args, cap_cg.args
+
+
+def profile_steps(torch, eng, steps: int = 6):
+    """Where an iteration's time goes, on the served engine with 8 fresh
+    offline requests (64-token prompts) decoding: ``steps`` steps timed
+    without the profiler, then ``steps`` more under ``torch.profiler``.
+    Prints the device-busy time per step over both step times (the
+    profiler stretches a step) and the kernels by device time.
+    Informational: a profiler that cannot trace the card is reported, not
+    fatal."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.request import Priority, Request
+
+    rng = np.random.default_rng(1)
+    for _ in range(8):
+        prompt = rng.integers(0, eng.cfg.vocab_size, 64).astype(np.int32)
+        eng.submit(Request(Priority.OFFLINE, prompt_len=64, max_new_tokens=32, prompt=prompt))
+    for _ in range(4):  # the prefill steps
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # kernels only: an operator's row repeats the device time of the
+        # kernels it launched
+        rows = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
+                 e.count, e.key) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:  # noqa: BLE001 -- a measurement, not the port
+        log(f"  profiler unavailable: {e!r}")
+        return
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"  decode steps: {plain * 1e3 / steps:.2f} ms per step without the profiler, "
+        f"{wall * 1e3 / steps:.2f} ms with it (host clock); device busy "
+        f"{busy * 1e3 / steps:.2f} ms per step = {busy / plain:.1%} of an unprofiled step "
+        f"({busy / wall:.1%} of a profiled one)")
+    for us, n, name in rows[:10]:
+        log(f"    {us / steps / 1e3:8.3f} ms/step  {n // steps:5d} calls/step  {name[:90]}")
+
+
+# ------------------------------------------------------------------- phase 5
+# Contexts of a few thousand tokens at the Llama-2-7B shape, bf16: a decode
+# batch (Qmax 1) and a fused batch of prefill chunks among decodes (Qmax 32).
+LONG_CASES = {
+    "decode": dict(q_lens=(1,) * 16, qmax=1,
+                   kv_lens=tuple(2048 + 128 * i for i in range(16))),
+    "prefill chunks + decodes": dict(q_lens=(32,) * 4 + (1,) * 12, qmax=32,
+                                     kv_lens=tuple(2048 + 128 * i for i in range(16))),
+}
+
+
+def attention_entry(torch, rpa, args, spec, timer):
+    """Time, plain time and bound of one attention call; raises if the
+    kernel disagrees with its plain version on these inputs."""
+    q, kp, vp, tb, qp, kvl, cap = args
+    dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
+    want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL[dname]):
+        raise AssertionError(f"ragged_paged_attention disagrees at {tuple(q.shape)} "
+                             f"kv_lens={kvl.tolist()}: max_abs_err={err:.3e}")
+    bound, by = attention_bound(torch, q, kp, tb, qp, kvl, PEAK_FLOPS[dname], spec.hbm_bw)
+    return {
+        "max_abs_err": err,
+        "ms": timer.ms(lambda: rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)),
+        "plain_ms": timer.ms(lambda: rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)),
+        "bound_ms": bound, "bound_by": by,
+        "shape": {"q": list(q.shape), "pool": list(kp.shape), "tables": list(tb.shape),
+                  "kv_lens": kvl.tolist(), "dtype": dname},
+    }
+
+
+def kernel_line(torch, rpa, cg, counts, rpa_args, cg_args, spec, timer):
+    main = attention_entry(torch, rpa, rpa_args, spec, timer)
+    log(f"  ragged_paged_attention, heaviest main-path call: {main}")
+    long_context = []
+    for case, kw in LONG_CASES.items():
+        args = attention_case(torch, torch.bfloat16, 32, 32, 128, 0.0, 3, **kw)
+        entry = {"case": case, **attention_entry(torch, rpa, args, spec, timer)}
+        entry["shape"]["kv_lens"] = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
+        log(f"  ragged_paged_attention, {case}: {entry}")
+        long_context.append(entry)
+        del args
+    shape = main.pop("shape")
+    out = [{
+        "name": "ragged_paged_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:217",
+        "launches": counts["ragged_paged_attention"], **main,
+        "library_ms": None, "shape": shape, "long_context": long_context,
+    }]
+    pool, ids = cg_args
+    got = cg.checkpoint_gather(pool, ids)
+    want = cg.checkpoint_gather_ref(pool, ids)
+    if not torch.equal(got, want):
+        raise AssertionError(f"checkpoint_gather disagrees at pool {tuple(pool.shape)}, "
+                             f"{ids.numel()} ids")
+    err = (got.float() - want.float()).abs().max().item()
+    nbytes = 2 * got.numel() * got.element_size() + ids.numel() * 4
+    out.append({
+        "name": "checkpoint_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/checkpoint_gather.cu",
+        "replaces": "src/repro/kernels/kv_checkpoint.py:30",
+        "launches": counts["checkpoint_gather"], "max_abs_err": err,
+        "ms": timer.ms(lambda: cg.checkpoint_gather(pool, ids)),
+        "plain_ms": timer.ms(lambda: cg.checkpoint_gather_ref(pool, ids)),
+        "bound_ms": nbytes / spec.hbm_bw * 1e3, "bound_by": "bytes",
+        "library_ms": timer.ms(lambda: pool.index_select(1, ids)),
+        "shape": {"pool": list(pool.shape), "ids": ids.numel(), "dtype": str(pool.dtype)},
+    })
+    return out
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: the port's sources are not next to this script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.profiler import h100_spec
+    from repro_torch.kernels import build, kv_checkpoint as cg, ops, paged_attention as rpa
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer as tf
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    log(f"[1] device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
+        f"| python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"  torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"  kernels built in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
+    for name, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {name}: {line.strip()}")
+
+    log("[2] kernels vs their plain versions on the card")
+    check_kernels(torch, ops, rpa, cg)
+
+    log("[3] serve Llama-2-7B at full width through repro_torch.launch.serve.run_real")
+    res, counts, argv, rpa_args, cg_args = run_main_path(torch, ops, serve_mod, tf)
+    profile_steps(torch, res["engine"])
+    del res
+    torch.cuda.empty_cache()
+
+    log("[4] self-consistency at fp32: preempted vs uninterrupted vs prefix cache off")
+    argv32 = [a if a != "bfloat16" else "float32" for a in argv]
+    runs = {}
+    for name, extra in (("preempted", ["--num-device-blocks", "56"]),
+                        ("uninterrupted", ["--num-device-blocks", "512"]),
+                        ("prefix cache off", ["--num-device-blocks", "56", "--no-prefix-cache"])):
+        res = serve(serve_mod, argv32 + extra)
+        log(f"  {name}: preemptions={res['preemptions']} steps={res['engine'].steps} "
+            f"{res['generated'] / res['seconds']:.1f} tok/s")
+        runs[name] = (res["preemptions"], offline_tokens(res))
+        del res
+        torch.cuda.empty_cache()
+    if runs["preempted"][0] == 0 or runs["uninterrupted"][0] != 0:
+        raise AssertionError("phase 4 did not contrast a preempted and an uninterrupted run")
+    compare_runs("preempted vs uninterrupted", runs["preempted"][1], runs["uninterrupted"][1])
+    compare_runs("prefix cache on vs off", runs["preempted"][1], runs["prefix cache off"][1])
+
+    log("[5] kernels at the main path's captured inputs")
+    spec = h100_spec(torch.cuda.get_device_name(0))
+    line = kernel_line(torch, rpa, cg, counts, rpa_args, cg_args, spec, Timer(torch))
+    log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        sys.exit(1)

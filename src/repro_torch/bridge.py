@@ -1,0 +1,36 @@
+"""Turn the JAX package's parameters and paged pools into the port's tensors.
+
+The input is the reference pytree as plain numpy arrays (for example
+``jax.tree.map(np.asarray, tf.init_params(cfg, PRNGKey(0)))``), so this
+module never imports JAX: nested dicts map to nested dicts, each array to
+a tensor on ``device``, and the period-major stacking is kept as it is.
+Tests use it so both packages compute with the same weights, with nothing
+downloaded.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def to_torch(tree: Any, device="cpu", dtype: Optional[torch.dtype] = None) -> Any:
+    """Nested dicts of arrays -> the same dicts of tensors on ``device``
+    (cast to ``dtype`` when given; integer leaves keep their type)."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+    t = torch.from_numpy(np.array(tree, copy=True)).to(device)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t
+
+
+def to_numpy(tree: Any) -> Any:
+    """The reverse of ``to_torch``: tensors -> numpy arrays (bf16 as fp32)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -1,0 +1,27 @@
+"""Architecture registry: the configurations the PyTorch port serves.
+
+``get_config(name)`` returns the full production config; ``--arch <id>`` in
+the launchers resolves through this registry.  Each module cites its source.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "qwen2-0.5b": "qwen2_0_5b",
+    # the paper's own evaluation model
+    "llama-2-7b": "llama2_7b",
+}
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {name: get_config(name) for name in _MODULES}

@@ -1,0 +1,60 @@
+"""Entry points of the kernel layer, dispatched by the tensor's device.
+
+CUDA tensors go to the hand-written Hopper kernels; CPU tensors go to their
+plain PyTorch versions.  There is no other switch: a CUDA call launches its
+kernel or raises, and never falls back to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kvcache.cache_ops import checkpoint_gather_ref, ragged_paged_attention_ref
+from . import kv_checkpoint, paged_attention
+
+__all__ = ["ragged_paged_attention", "checkpoint_gather", "reset_launch_counts",
+           "launch_counts"]
+
+KERNELS = {
+    "ragged_paged_attention": paged_attention.ragged_paged_attention,
+    "checkpoint_gather": kv_checkpoint.checkpoint_gather,
+}
+
+
+def _device_type(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel or plain version for device {t.device}")
+    return t.device.type
+
+
+def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_positions,
+                           kv_lens, *, logit_softcap=0.0):
+    """Fused mixed-batch attention over the paged pool (DESIGN.md §12)."""
+    if _device_type(q) == "cuda":
+        return paged_attention.ragged_paged_attention(
+            q, k_pool, v_pool, block_tables, q_positions, kv_lens,
+            logit_softcap=logit_softcap,
+        )
+    return ragged_paged_attention_ref(
+        q, k_pool, v_pool, block_tables, q_positions, kv_lens,
+        logit_softcap=logit_softcap,
+    )
+
+
+def checkpoint_gather(pool, block_ids, *, out=None):
+    """Pack the pages ``block_ids`` of a (P, N, page, Hkv, D) pool leaf into
+    a dense (P, K, page, Hkv, D) staging buffer."""
+    if _device_type(pool) == "cuda":
+        return kv_checkpoint.checkpoint_gather(pool, block_ids, out=out)
+    staged = checkpoint_gather_ref(pool, block_ids)
+    if out is None:
+        return staged
+    return out.copy_(staged)
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,167 @@
+"""The port's kernel layer against the JAX package's, on the CPU.
+
+The Pallas kernels run as ``tests/test_kernels.py`` runs them
+(``interpret=True``); the port's plain versions — what its CUDA kernels are
+held against on the card — must agree with them on the same numpy inputs.
+The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.kv_checkpoint import checkpoint_gather as jax_gather  # noqa: E402
+from repro.kernels.paged_attention import (  # noqa: E402
+    paged_attention as jax_paged,
+    ragged_paged_attention as jax_ragged,
+)
+from repro.kvcache import cache_ops as jco  # noqa: E402
+from repro_torch.kernels import kv_checkpoint, ops, paged_attention  # noqa: E402
+from repro_torch.kvcache import cache_ops as tco  # noqa: E402
+
+# fp32 on both sides; the sums run in another order (the reference's own
+# kernel-vs-oracle tolerance, tests/test_kernels.py)
+ATOL = 2e-5
+
+
+def _rand(shape, seed, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _ragged_inputs(q_lens, h, hkv, d, page, m, seed, kv_zero=False):
+    """Queries at the tail of each context; padded slots repeat the last
+    real position, as ``tests/test_kernels.py`` builds them."""
+    rng = np.random.default_rng(seed)
+    s, qmax = len(q_lens), max(q_lens)
+    npages = s * m
+    q = _rand((s, qmax, h, d), seed + 1)
+    kp = _rand((npages, page, hkv, d), seed + 2)
+    vp = _rand((npages, page, hkv, d), seed + 3)
+    tables = rng.permutation(npages)[: s * m].reshape(s, m).astype(np.int32)
+    kv = rng.integers(max(q_lens), m * page + 1, s).astype(np.int32)
+    ql = np.asarray(q_lens)
+    j = np.arange(qmax)[None, :]
+    q_pos = (kv[:, None] - ql[:, None] + np.minimum(j, ql[:, None] - 1)).astype(np.int32)
+    if kv_zero:  # a padded sequence, as the engine builds it
+        kv[-1], q_pos[-1], tables[-1, 1:] = 0, 0, -1
+    return q, kp, vp, tables, q_pos, kv
+
+
+RAGGED_CASES = [
+    # q_lens per sequence, h, hkv, d, page, m
+    ([1, 1, 1], 8, 2, 64, 16, 4),  # pure decode (q_len = 1 degenerate case)
+    ([8, 1, 4, 1], 4, 2, 32, 8, 6),  # mixed prefill chunks + decodes, GQA
+    ([6, 3], 4, 4, 32, 8, 4),  # dense (g = 1) ragged chunks
+    ([5, 1], 16, 1, 64, 16, 3),  # MQA
+    ([4, 1, 2], 14, 2, 64, 16, 3),  # G = 7, not a power of two
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_ragged_ref_matches_pallas(case, softcap):
+    args = _ragged_inputs(*case, seed=40)
+    want = np.asarray(jax_ragged(*map(jnp.asarray, args), logit_softcap=softcap,
+                                 interpret=True))
+    got = tco.ragged_paged_attention_ref(*map(torch.from_numpy, args),
+                                         logit_softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_ragged_ref_zero_context_rows_are_zero():
+    """A padded sequence (kv_len = 0) keeps no key: the Pallas kernel's safe
+    divisor makes its rows exactly 0, and so does the port."""
+    args = _ragged_inputs([3, 1, 1], 4, 2, 32, 8, 4, seed=60, kv_zero=True)
+    want = np.asarray(jax_ragged(*map(jnp.asarray, args), interpret=True))
+    got = tco.ragged_paged_attention_ref(*map(torch.from_numpy, args)).numpy()
+    assert not got[-1].any() and not want[-1].any()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_ragged_ref_decode_matches_pallas_decode_kernel():
+    """At Qmax = 1 the ragged function is decode attention: it agrees with
+    the reference's decode kernel, query at position len - 1."""
+    b, h, hkv, d, page, m, npages = 2, 8, 2, 64, 16, 3, 8
+    q = _rand((b, h, d), 50)
+    kp, vp = _rand((npages, page, hkv, d), 51), _rand((npages, page, hkv, d), 52)
+    tables = np.random.default_rng(53).permutation(npages)[: b * m].reshape(b, m)
+    tables = tables.astype(np.int32)
+    lens = np.array([37, 12], np.int32)
+    dec = np.asarray(jax_paged(*map(jnp.asarray, (q, kp, vp, tables, lens)),
+                               interpret=True))
+    rag = tco.ragged_paged_attention_ref(
+        *map(torch.from_numpy, (q[:, None], kp, vp, tables, (lens - 1)[:, None], lens))
+    )
+    np.testing.assert_allclose(rag[:, 0].numpy(), dec, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_gather_ref_matches_pallas_exactly(dtype):
+    """Period-stacked leaf (P, N, page, Hkv, D) with repeated ids (the engine
+    pads id lists with the scratch block): each period equals the Pallas
+    gather of that period's pool, bit for bit."""
+    pool32 = _rand((3, 32, 16, 2, 64), 20)
+    ids = np.array([5, 2, 17, 9, 31, 31, 31, 0], np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.stack([
+        np.asarray(jax_gather(jnp.asarray(p, jdt), jnp.asarray(ids), interpret=True)
+                   .astype(jnp.float32))
+        for p in pool32
+    ])
+    pool = torch.from_numpy(pool32).to(getattr(torch, dtype))
+    got = ops.checkpoint_gather(pool, torch.from_numpy(ids))
+    assert got.dtype == pool.dtype and got.shape == (3, 8, 16, 2, 64)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    out = torch.empty_like(got)
+    assert ops.checkpoint_gather(pool, torch.from_numpy(ids), out=out) is out
+    assert torch.equal(out, got)
+
+
+def test_write_ragged_matches_reference_and_drops():
+    """The KV scatter, in place, equals the reference's functional scatter,
+    negative rows and rows past the pool dropped."""
+    n, page = 6, 4
+    k0, v0 = _rand((n, page, 2, 8), 1), _rand((n, page, 2, 8), 2)
+    kn, vn = _rand((7, 2, 8), 3), _rand((7, 2, 8), 4)
+    rows = np.array([0, 3, -1, 5, 6, 2, 3], np.int32)
+    offs = np.array([0, 1, 2, 3, 0, 3, 2], np.int32)
+    jk, jv = jco.write_ragged(*map(jnp.asarray, (k0, v0, kn, vn, rows, offs)))
+    tk, tv = torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy())
+    tco.write_ragged(tk, tv, *map(torch.from_numpy, (kn, vn, rows, offs)))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_copy_blocks_and_gather_paged_match_reference():
+    pool = _rand((8, 4, 2, 8), 5)
+    src, dst = np.array([1, 4, 6], np.int32), np.array([7, 0, 2], np.int32)
+    want = np.asarray(jco.copy_blocks(jnp.asarray(pool), jnp.asarray(src), jnp.asarray(dst)))
+    got = tco.copy_blocks(torch.from_numpy(pool.copy()), torch.from_numpy(src),
+                          torch.from_numpy(dst))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the same copy through the period axis of a stacked (P, N, ...) leaf
+    stacked = torch.from_numpy(np.stack([pool, pool + 1]))
+    tco.copy_blocks(stacked, torch.from_numpy(src), torch.from_numpy(dst), dim=1)
+    np.testing.assert_array_equal(stacked[1].numpy(), want + 1)
+    tables = np.array([[3, -1, 5], [0, 1, -1]], np.int32)
+    want = np.asarray(jco.gather_paged(jnp.asarray(pool), jnp.asarray(tables), 12))
+    got = tco.gather_paged(torch.from_numpy(pool), torch.from_numpy(tables), 12)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ops_dispatch_by_device():
+    """CPU tensors take the plain versions; the CUDA wrappers refuse them
+    (on a CUDA tensor they launch their kernel or raise, never fall back)."""
+    args = [torch.from_numpy(a) for a in _ragged_inputs([2, 1], 4, 2, 64, 8, 3, seed=7)]
+    want = tco.ragged_paged_attention_ref(*args)
+    assert torch.equal(ops.ragged_paged_attention(*args), want)
+    assert ops.launch_counts() == {"ragged_paged_attention": 0, "checkpoint_gather": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.ragged_paged_attention(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        kv_checkpoint.checkpoint_gather(torch.zeros(1, 4, 16, 2, 64),
+                                        torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="device"):
+        ops.ragged_paged_attention(*[a.to("meta") for a in args])

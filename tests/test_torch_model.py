@@ -1,0 +1,216 @@
+"""The port's layers and model against the JAX package's, on the CPU.
+
+Both packages compute with the same weights (the reference's
+``init_params(cfg, PRNGKey(0))`` carried over by ``repro_torch.bridge``)
+and the same numpy inputs, at fp32, on ``.reduced()`` Llama-2-7B (MHA) and
+Qwen2-0.5B (GQA, qkv bias, tied embeddings).
+"""
+import functools
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import get_config  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
+from repro.models import sampling as js  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config as get_config_t  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import sampling as ts  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+
+ARCHS = ["llama-2-7b", "qwen2-0.5b"]
+# fp32 on both sides; XLA and PyTorch's CPU matmuls sum in other orders.
+# Layer outputs are O(1): measured differences are a few 1e-7; logits after
+# the whole reduced stack a few 1e-6.
+LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
+MODEL_TOL = dict(atol=5e-5, rtol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _model(arch):
+    cfg = get_config(arch).reduced()
+    params = jtf.init_params(cfg, jax.random.PRNGKey(0))
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, params))
+    return cfg, get_config_t(arch).reduced(), params, tparams
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def test_init_params_and_bridge_keep_the_reference_layout():
+    """The port's own init has the reference's tree, shapes and stacking; the
+    bridge carries the reference weights over exactly and back."""
+    for arch in ARCHS:
+        cfg, cfgt, params, tparams = _model(arch)
+        own = ttf.init_params(cfgt, torch.Generator().manual_seed(0))
+        want = jax.tree_util.tree_map_with_path(
+            lambda p, a: (jax.tree_util.keystr(p), a.shape), params
+        )
+        got = {}
+
+        def walk(tree, path=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, f"{path}['{k}']")
+                else:
+                    got[f"{path}['{k}']"] = tuple(v.shape)
+
+        walk(own)
+        assert got == dict(jax.tree_util.tree_leaves(want, is_leaf=lambda x: isinstance(x, tuple)))
+        back = bridge.to_numpy(tparams)
+        jax.tree.map(np.testing.assert_array_equal, jax.tree.map(np.asarray, params), back)
+
+
+def test_rmsnorm_and_rope_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32) * 3
+    w = rng.standard_normal((64,)).astype(np.float32)
+    np.testing.assert_allclose(
+        tl.rmsnorm(_t(x), _t(w)).numpy(), np.asarray(jl.rmsnorm(x, w)), **LAYER_TOL
+    )
+    q = rng.standard_normal((2, 5, 4, 64)).astype(np.float32)
+    pos = rng.integers(0, 4000, (2, 5)).astype(np.int32)
+    for theta in (10000.0, 1000000.0):
+        np.testing.assert_allclose(
+            tl.apply_rope(_t(q), _t(pos), theta).numpy(),
+            np.asarray(jl.apply_rope(q, pos, theta)), atol=1e-4, rtol=1e-5,
+        )  # angles up to 4000 rad: cos/sin of fp32 arguments differ by ~1e-5
+
+
+def _ragged_batch(cfg, items, n_blocks, bs, seed):
+    """One fused batch as the engine lays it out: (q_len, ctx, table) per
+    sequence, pow2-padded T / S / Qmax, padded tokens to the scratch row."""
+    from repro_torch.core.budget import pow2_bucket
+
+    scratch = n_blocks - 1
+    t = pow2_bucket(sum(q for q, _, _ in items))
+    s, qmax = pow2_bucket(len(items)), pow2_bucket(max(q for q, _, _ in items))
+    width = len(items[0][2])
+    a = dict(
+        tokens=np.random.default_rng(seed).integers(0, cfg.vocab_size, t).astype(np.int32),
+        positions=np.zeros(t, np.int32), dst_row=np.full(t, scratch, np.int32),
+        dst_off=np.zeros(t, np.int32), tables=np.full((s, width), scratch, np.int32),
+        qpad=np.full((s, qmax), t - 1, np.int32), q_pos=np.zeros((s, qmax), np.int32),
+        kv_lens=np.zeros(s, np.int32), unpad_seq=np.full(t, s - 1, np.int32),
+        unpad_j=np.zeros(t, np.int32), logit_idx=np.full(s, t - 1, np.int32),
+    )
+    st = 0
+    for i, (ql, ctx, table) in enumerate(items):
+        pos = ctx + np.arange(ql)
+        sl = slice(st, st + ql)
+        a["positions"][sl], a["tables"][i] = pos, table
+        a["dst_row"][sl], a["dst_off"][sl] = table[pos // bs], pos % bs
+        a["qpad"][i, :ql], a["q_pos"][i, :ql] = st + np.arange(ql), pos
+        a["kv_lens"][i], a["unpad_seq"][sl] = ctx + ql, i
+        a["unpad_j"][sl], a["logit_idx"][i] = np.arange(ql), st + ql - 1
+        st += ql
+    return a
+
+
+FIELDS = ("dst_row", "dst_off", "qpad", "q_pos", "kv_lens", "unpad_seq", "unpad_j")
+# a prefill chunk at ctx 0, a chunk continuing at ctx 16, two decodes
+ITEMS = [(5, 0, np.array([0, 9, 9, 9], np.int32)),
+         (3, 16, np.array([1, 2, 9, 9], np.int32)),
+         (1, 20, np.array([3, 4, 9, 9], np.int32)),
+         (1, 40, np.array([5, 6, 7, 9], np.int32))]
+
+
+def _pools(cfg, n, bs, seed):
+    pools = jtf.init_paged_pools(cfg, n, bs)
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32), pools)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_ragged_attention_matches_reference(arch):
+    cfg, cfgt, params, tparams = _model(arch)
+    n, bs = 10, 16
+    a = _ragged_batch(cfg, ITEMS, n, bs, seed=3)
+    pool = jax.tree.map(lambda x: x[0], _pools(cfg, n, bs, 4)["0"])
+    x = np.random.default_rng(5).standard_normal((1, len(a["tokens"]), cfg.d_model))
+    x = x.astype(np.float32)
+    lp = jax.tree.map(lambda p: p[0], params["layers"]["0"]["mixer"])
+    meta = jl.RaggedMeta(*(jnp.asarray(a[f]) for f in FIELDS))
+    want, wpool = jl.paged_ragged_attention(
+        cfg, lp, jnp.asarray(x), jax.tree.map(jnp.asarray, pool),
+        jnp.asarray(a["tables"]), jnp.asarray(a["positions"][None]), meta,
+    )
+    tpool = bridge.to_torch(pool)
+    got, gpool = tl.paged_ragged_attention(
+        cfgt, jax.tree.map(lambda p: p[0], tparams["layers"]["0"]["mixer"]), _t(x), tpool,
+        _t(a["tables"]), _t(a["positions"][None]), tl.RaggedMeta(*(_t(a[f]) for f in FIELDS)),
+    )
+    # padded tokens' output rows read garbage on both sides: compare real ones
+    real = sum(q for q, _, _ in ITEMS)
+    np.testing.assert_allclose(got.numpy()[:, :real], np.asarray(want)[:, :real], **LAYER_TOL)
+    for kv in ("k", "v"):  # all rows but the scratch one (padded tokens)
+        np.testing.assert_allclose(gpool[kv].numpy()[:-1], np.asarray(wpool[kv])[:-1],
+                                   **LAYER_TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_run_tokens_paged_logits_and_pools_match_reference(arch):
+    cfg, cfgt, params, tparams = _model(arch)
+    n, bs = 10, 16
+    a = _ragged_batch(cfg, ITEMS, n, bs, seed=6)
+    pools = _pools(cfg, n, bs, 7)
+    meta = jl.RaggedMeta(*(jnp.asarray(a[f]) for f in FIELDS))
+    want, wpools = jtf.run_tokens_paged(
+        cfg, params, jnp.asarray(a["tokens"]), jax.tree.map(jnp.asarray, pools),
+        jnp.asarray(a["tables"]), jnp.asarray(a["positions"]), meta,
+        jnp.asarray(a["logit_idx"]),
+    )
+    tpools = bridge.to_torch(pools)
+    got, gpools = ttf.run_tokens_paged(
+        cfgt, tparams, _t(a["tokens"]), tpools, _t(a["tables"]), _t(a["positions"]),
+        tl.RaggedMeta(*(_t(a[f]) for f in FIELDS)), _t(a["logit_idx"]),
+    )
+    assert gpools is tpools  # updated in place
+    assert got.dtype == torch.float32
+    s = len(ITEMS)
+    np.testing.assert_allclose(got.numpy()[:s], np.asarray(want)[:s], **MODEL_TOL)
+    for pos in wpools:
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(gpools[pos][kv].numpy()[:, :-1],
+                                       np.asarray(wpools[pos][kv])[:, :-1], **MODEL_TOL)
+    # the segmented form gives the same pools and activations
+    tpools2 = bridge.to_torch(pools)
+    x = ttf.embed(cfgt, tparams, _t(a["tokens"])[None])
+    meta_t = tl.RaggedMeta(*(_t(a[f]) for f in FIELDS))
+    for lo, pps in ttf.segment_spans(cfgt):
+        x, _ = ttf.run_tokens_paged_at(cfgt, tparams, pps, lo, x, tpools2, _t(a["tables"]),
+                                       _t(a["positions"][None]), meta_t)
+    seg = ttf.ragged_lm_head(cfgt, tparams, x, _t(a["logit_idx"]))
+    assert torch.equal(seg, got)
+    assert ttf.segment_spans(cfgt) == jtf.segment_spans(cfg)
+
+
+def test_greedy_sampling_matches_reference():
+    logits = np.random.default_rng(8).standard_normal((6, 50)).astype(np.float32)
+    logits[2, [3, 7]] = 9.0  # a tie: both take the first maximum
+    rows = np.array([4, 2, 2, 0], np.int32)
+    want = np.asarray(js.sample_rows(jnp.asarray(logits), jnp.asarray(rows),
+                                     js.SamplingParams(), jax.random.PRNGKey(0)))
+    got = ts.sample_rows(_t(logits), _t(rows), ts.SamplingParams())
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_stochastic_sampling_distribution():
+    """Temperature / top-k draws come from a torch.Generator, so they are
+    held to the distribution the reference samples from, not to its bits."""
+    logits = torch.tensor([[2.0, 1.0, 0.5, -1.0, 0.0]]).repeat(20000, 1)
+    params = ts.SamplingParams(temperature=0.7, top_k=3)
+    draws = ts.sample(logits, params, torch.Generator().manual_seed(0)).numpy()
+    want = np.exp(np.array([2.0, 1.0, 0.5]) / 0.7)
+    want /= want.sum()
+    freq = np.bincount(draws, minlength=5) / len(draws)
+    assert freq[3] == 0 and freq[4] == 0  # outside the top 3
+    np.testing.assert_allclose(freq[:3], want, atol=0.015)  # ~4 sigma at n=20000
