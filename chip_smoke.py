@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # phases 1 and 2, and the kernels'
+                                          # long-context timings
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a), the CUDA
 toolkit's ``nvcc`` and the repository's sources next to this file.  It
@@ -12,20 +14,28 @@ any failure exits non-zero before the result lines:
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B attention shapes.
 3. Llama-2-7B at full width (bf16, 32 layers, random weights from a seed)
-   served through ``repro_torch.launch.serve.run_real``: online streams
-   arrive while an offline batch job runs on a pool small enough to force
-   preemption, so checkpoint gathers and resume restores run.  Kernel
-   launch counts are zeroed just before and read just after.
+   served through ``repro_torch.launch.serve.run_real`` on the fused path:
+   online streams arrive while an offline batch job runs on a pool small
+   enough to force preemption, so checkpoint gathers and resume restores
+   run.  Kernel launch counts are zeroed just before and read just after.
+3b. The same workload, model and pool on the split path
+   (``--no-fused-batch``): prefill chunks batched, decodes through the
+   paged decode attention kernel, counted and profiled the same way; its
+   prefill and decode dispatches must not synchronise with the host.
 4. Self-consistency of the port, at fp32 (same width and depth): greedy
-   tokens of a preempted run equal those of an uninterrupted run and of a
-   run with the prefix cache off, up to the first near-tie (a top-2 logit
-   margin below MARGIN_BOUND).  bf16 logits tie exactly too often for a
-   token comparison to say much.
+   tokens of a preempted fused run equal those of an uninterrupted run, of
+   a run with the prefix cache off and of a preempted split run, up to the
+   first near-tie (a top-2 logit margin below MARGIN_BOUND).  bf16 logits
+   tie exactly too often for a token comparison to say much.
 5. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches,
    error against the plain version, time, plain time, bound and library
-   time, measured on the heaviest call of the main path (captured while it
-   ran; the kernel must agree with its plain version there), and for
-   attention the same at contexts of 2-4 thousand tokens (``long_context``).
+   time, measured on the heaviest call of its path (captured while it ran;
+   the kernel must agree with its plain version there), and for attention
+   the same at contexts of 2-4 thousand tokens (``long_context``).
+6. Calibration: ``RealEngine.calibrate()`` on a bf16 engine of each path
+   (``--calibrate``), the fitted profile, and phase 3's workload served on
+   each calibrated engine: measured against predicted seconds per
+   iteration, beside the same figures of the uncalibrated runs of 3 and 3b.
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -124,11 +134,45 @@ def attention_case(torch, dtype, h, hkv, d, softcap, seed,
     return q, kp, vp, tables, q_pos, kvl, float(softcap)
 
 
+def decode_case(torch, dtype, h, hkv, d, softcap, seed,
+                seq_lens=(163, 50, 16, 300, 1, 0, 64, 33), hole=6):
+    """A decode batch as the split path builds it: one query per sequence,
+    -1 table entries past each sequence's pages, a seq_len = 0 row, lengths
+    at exact page multiples (16, 64), and for row ``hole`` a -1 entry inside
+    its context (masked by both versions; the engine never builds one)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    page = 16
+    b = len(seq_lens)
+    m = max(-(-n // page) for n in seq_lens) + 2
+    n = b * m + 1
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((n, page, hkv, d), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((n, page, hkv, d), generator=g, device="cuda").to(dtype)
+    tables = torch.randperm(n - 1, generator=g, device="cuda")[: b * m].reshape(b, m)
+    tables = tables.to(torch.int32).clone()
+    for i, sl in enumerate(seq_lens):
+        tables[i, -(-sl // page):] = -1
+    if hole is not None:
+        tables[hole, 0] = -1
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, tables, lens, float(softcap)
+
+
 def check_kernels(torch, ops, rpa, cg):
     """Phase 2: every kernel against its plain version, fp32 and bf16."""
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
             for cap in (0.0, 30.0):
+                q, kp, vp, tb, lens, cap = decode_case(torch, dtype, h, hkv, d, cap, 4)
+                got = rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)
+                want = rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                zero = got[lens == 0].float().abs().max().item()
+                log(f"  paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} "
+                    f"softcap={cap:g}: max_abs_err={err:.3e} seq_len=0 rows max={zero:g}")
+                if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
+                    raise AssertionError(f"paged_attention disagrees ({dname}, {arch})")
                 q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d, cap, 1)
                 got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
                 want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
@@ -174,6 +218,25 @@ def attention_bound(torch, q, kp, tb, qp, kvl, peak_flops, hbm_bw):
     return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
+def decode_bound(torch, q, kp, tb, lens, peak_flops, hbm_bw):
+    """The least time of one decode attention call on these inputs, counted
+    from the data: q for rows with seq_len > 0, the whole output, seq_lens,
+    and for each sequence the table entries and K/V pages up to its
+    seq_len (pages with a -1 entry are not read)."""
+    b, h, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    elt = q.element_size()
+    n = lens.long().cpu()
+    col = torch.arange(tb.shape[1])[None, :]
+    entries = col < ((n + page - 1) // page)[:, None]
+    pages = int((entries & (tb.cpu() >= 0)).sum())
+    nbytes = ((int((n > 0).sum()) + b) * h * d * elt + int(entries.sum()) * 4
+              + lens.numel() * 4 + 2 * pages * page * hkv * d * elt)
+    flops = 4 * d * h * int(n.sum())
+    t_b, t_f = nbytes / hbm_bw * 1e3, flops / peak_flops * 1e3
+    return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
 # ------------------------------------------------------------ phase 3 and 4
 class Capture:
     """Wraps a kernel-layer entry point on the main path: delegates every
@@ -193,16 +256,17 @@ class Capture:
 
 class PagesRead:
     """Size of an attention call: the K/V pages it reads, the sum over
-    sequences of ceil(kv_len / page).  The layers of one iteration share
-    one ``kv_lens`` tensor, so it is read back once per iteration."""
+    sequences of ceil(kv_len / page), from the last argument (``kv_lens``,
+    or the decode kernel's ``seq_lens``).  The layers of one dispatch share
+    one block-table tensor, so the lengths are read back once per dispatch."""
 
     def __init__(self):
         self.key, self.pages = None, 0
 
-    def __call__(self, q, kp, vp, tb, qp, kvl):
-        if kvl is not self.key:
-            page = kp.shape[1]
-            self.key, self.pages = kvl, int(((kvl.long() + page - 1) // page).sum())
+    def __call__(self, q, kp, vp, tb, *rest):
+        if tb is not self.key:
+            page, lens = kp.shape[1], rest[-1]
+            self.key, self.pages = tb, int(((lens.long() + page - 1) // page).sum())
         return self.pages
 
 
@@ -241,54 +305,112 @@ def compare_runs(name, a, b):
         f"largest margin change on agreeing tokens {drift:.3e}")
 
 
-def run_main_path(torch, ops, serve_mod, tf):
-    """Phase 3: the serve path at full width, kernels captured and counted."""
-    cap_rpa = Capture(
-        ops.ragged_paged_attention,
-        PagesRead(),
-        lambda q, kp, vp, tb, qp, kvl, logit_softcap=0.0: (
-            q.clone(), kp.clone(), vp.clone(), tb.clone(), qp.clone(), kvl.clone(),
-            logit_softcap),
-    )
-    cap_cg = Capture(
-        ops.checkpoint_gather,
-        lambda pool, ids: ids.numel(),
-        lambda pool, ids, out=None: (pool.clone(), ids.clone()),
-    )
-    ops.ragged_paged_attention, ops.checkpoint_gather = cap_rpa, cap_cg
-    argv = ["--full", "--device", "cuda", "--dtype", "bfloat16", "--online", "4",
-            "--offline", "8", "--prompt-len", "512", "--max-new", str(MAX_NEW),
-            "--online-after", "4"]
+# phase 3's workload: Llama-2-7B at full width, 8 offline jobs, then 4 online
+# streams after 4 steps, on a pool of 56 blocks that forces preemption
+SERVE_ARGV = ["--full", "--device", "cuda", "--dtype", "bfloat16", "--online", "4",
+              "--offline", "8", "--prompt-len", "512", "--max-new", str(MAX_NEW),
+              "--online-after", "4", "--num-device-blocks", "56"]
+
+
+def iteration_figures(eng) -> str:
+    iters = max(1, eng.measured_iters)
+    model = "measured profile" if eng.profile is not None else "analytical prior"
+    return (f"measured_iter_seconds={eng.measured_iter_seconds:.4f} "
+            f"predicted_iter_seconds={eng.predicted_iter_seconds:.4f} "
+            f"measured_iters={eng.measured_iters}: {eng.measured_iter_seconds / iters * 1e3:.2f} "
+            f"ms measured vs {eng.predicted_iter_seconds / iters * 1e3:.2f} ms predicted per "
+            f"iteration by the {model}")
+
+
+def run_serve(torch, ops, serve_mod, tf, argv):
+    """Phases 3 and 3b: one serve run at full width, every kernel captured
+    and counted (counts zeroed just before, read just after)."""
+    caps = {
+        "ragged_paged_attention": Capture(
+            ops.ragged_paged_attention, PagesRead(),
+            lambda q, kp, vp, tb, qp, kvl, logit_softcap=0.0: (
+                q.clone(), kp.clone(), vp.clone(), tb.clone(), qp.clone(), kvl.clone(),
+                logit_softcap)),
+        "paged_attention": Capture(
+            ops.paged_attention, PagesRead(),
+            lambda q, kp, vp, tb, lens, logit_softcap=0.0: (
+                q.clone(), kp.clone(), vp.clone(), tb.clone(), lens.clone(), logit_softcap)),
+        "checkpoint_gather": Capture(
+            ops.checkpoint_gather, lambda pool, ids: ids.numel(),
+            lambda pool, ids, out=None: (pool.clone(), ids.clone())),
+    }
+    for name, cap in caps.items():
+        setattr(ops, name, cap)
     try:
         ops.reset_launch_counts()
-        res = serve(serve_mod, argv + ["--num-device-blocks", "56"])
+        res = serve(serve_mod, argv)
         counts = ops.launch_counts()
     finally:
-        ops.ragged_paged_attention, ops.checkpoint_gather = cap_rpa.fn, cap_cg.fn
+        for name, cap in caps.items():
+            setattr(ops, name, cap.fn)
     eng, cfg = res["engine"], res["cfg"]
     aborts = eng.safepoints.stats.preemptions
     log(f"  {cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} heads={cfg.num_heads}"
         f"/{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab_size} dtype=bfloat16")
+        f"vocab={cfg.vocab_size} dtype=bfloat16, {'fused' if eng.fused else 'split'} path")
     log(f"  steps={eng.steps} safepoint_aborts={aborts} preemptions={res['preemptions']} "
         f"ckpt_blocks={eng.ckpt.stats.blocks_checkpointed} ckpt_gather_rounds={eng.ckpt_gathers} "
         f"restored_blocks={eng.restored_blocks} cow_rounds={eng.cow_dispatches} "
-        f"fused_buckets={eng.fused_trace_count}")
+        f"fused_buckets={eng.fused_trace_count} dispatches={eng.dispatches}")
     log(f"  generated={res['generated']} tokens in {res['seconds']:.3f} s = "
         f"{res['generated'] / res['seconds']:.1f} tok/s (host clock, includes every phase of serving)")
+    log(f"  {iteration_figures(eng)}")
     log(f"  launches: {counts}")
     reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
     short = [r.request_id for r in reqs if len(r.output_tokens) != MAX_NEW]
     if short:
         raise AssertionError(f"requests without all their tokens: {short}")
     per_segment = cfg.num_layers // len(tf.segment_spans(cfg))
-    if counts["ragged_paged_attention"] != per_segment * eng.dispatches["fused_segment"]:
-        raise AssertionError("ragged_paged_attention launches != layers of the segments run")
-    if counts["ragged_paged_attention"] < cfg.num_layers * (eng.steps - aborts):
-        raise AssertionError("ragged_paged_attention launched fewer than 32 x completed steps")
+    d = eng.dispatches
+    if eng.fused:
+        if counts["ragged_paged_attention"] != per_segment * d["fused_segment"]:
+            raise AssertionError("ragged_paged_attention launches != layers of the segments run")
+        if counts["ragged_paged_attention"] < cfg.num_layers * (eng.steps - aborts):
+            raise AssertionError("ragged_paged_attention launched fewer than 32 x completed steps")
+        if counts["paged_attention"] != 0:
+            raise AssertionError("the fused path launched the decode kernel")
+    else:
+        if counts["paged_attention"] != cfg.num_layers * d["decode"] + per_segment * d["segment"]:
+            raise AssertionError("paged_attention launches != 32 x decode dispatches + "
+                                 "layers per segment x segment dispatches")
+        if counts["paged_attention"] == 0 or d["prefill"] == 0:
+            raise AssertionError("the split path ran no decode or no prefill dispatch")
+        if counts["ragged_paged_attention"] != 0:
+            raise AssertionError("the split path launched the ragged kernel")
     if res["preemptions"] == 0 or counts["checkpoint_gather"] == 0 or eng.restored_blocks == 0:
         raise AssertionError("the run did not preempt, checkpoint and restore")
-    return res, counts, argv, cap_rpa.args, cap_cg.args
+    return res, counts, {name: cap.args for name, cap in caps.items()}
+
+
+def check_split_reads_nothing_back(torch, tf, eng):
+    """The split path's dispatches read nothing back to the host: one
+    ``prefill_chunk_paged`` and one ``decode_step_paged`` on the served
+    engine's pools, every row on the scratch block, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a synchronising call
+    raises)."""
+    import numpy as np
+
+    b, scratch = 8, eng._scratch_block
+    toks = eng._put(np.zeros((b, 32), np.int32))
+    tables = eng._put(np.full((b, eng._table_width), scratch, np.int32))
+    offs = eng._put(np.zeros((b,), np.int32))
+    last = eng._put(np.full((b,), 31, np.int32))
+    lens = eng._put(np.full((b,), 100, np.int32))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tf.prefill_chunk_paged(eng.cfg, eng.params, toks, eng.pools, tables, offs, last)
+        tf.decode_step_paged(eng.cfg, eng.params, offs, eng.pools, tables, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("  split prefill and decode dispatches ran under sync debug mode 'error': "
+        "no host read-back")
 
 
 def profile_steps(torch, eng, steps: int = 6):
@@ -353,8 +475,8 @@ LONG_CASES = {
 
 
 def attention_entry(torch, rpa, args, spec, timer):
-    """Time, plain time and bound of one attention call; raises if the
-    kernel disagrees with its plain version on these inputs."""
+    """Time, plain time and bound of one ragged attention call; raises if
+    the kernel disagrees with its plain version on these inputs."""
     q, kp, vp, tb, qp, kvl, cap = args
     dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
     got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
@@ -374,26 +496,71 @@ def attention_entry(torch, rpa, args, spec, timer):
     }
 
 
-def kernel_line(torch, rpa, cg, counts, rpa_args, cg_args, spec, timer):
-    main = attention_entry(torch, rpa, rpa_args, spec, timer)
-    log(f"  ragged_paged_attention, heaviest main-path call: {main}")
-    long_context = []
+def decode_entry(torch, rpa, args, spec, timer):
+    """Time, plain time and bound of one decode attention call; raises if
+    the kernel disagrees with its plain version on these inputs."""
+    q, kp, vp, tb, lens, cap = args
+    dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    got = rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)
+    want = rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL[dname]):
+        raise AssertionError(f"paged_attention disagrees at {tuple(q.shape)} "
+                             f"seq_lens={lens.tolist()}: max_abs_err={err:.3e}")
+    bound, by = decode_bound(torch, q, kp, tb, lens, PEAK_FLOPS[dname], spec.hbm_bw)
+    return {
+        "max_abs_err": err,
+        "ms": timer.ms(lambda: rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)),
+        "plain_ms": timer.ms(lambda: rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)),
+        "bound_ms": bound, "bound_by": by,
+        "shape": {"q": list(q.shape), "pool": list(kp.shape), "tables": list(tb.shape),
+                  "seq_lens": lens.tolist(), "dtype": dname},
+    }
+
+
+def long_context_entries(torch, rpa, spec, timer):
+    """Both attention kernels on the same long-context inputs: the ragged
+    kernel on every ``LONG_CASES`` batch, the decode kernel on the decode
+    batch recast as q (B, H, D) and seq_lens = kv_lens."""
+    ragged = []
     for case, kw in LONG_CASES.items():
         args = attention_case(torch, torch.bfloat16, 32, 32, 128, 0.0, 3, **kw)
         entry = {"case": case, **attention_entry(torch, rpa, args, spec, timer)}
         entry["shape"]["kv_lens"] = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
         log(f"  ragged_paged_attention, {case}: {entry}")
-        long_context.append(entry)
+        ragged.append(entry)
+        if case == "decode":
+            q, kp, vp, tb, _qp, kvl, cap = args
+            entry = {"case": case, **decode_entry(
+                torch, rpa, (q[:, 0].contiguous(), kp, vp, tb, kvl, cap), spec, timer)}
+            entry["shape"]["seq_lens"] = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
+            log(f"  paged_attention, {case}: {entry}")
+            decode = [entry]
         del args
-    shape = main.pop("shape")
+    return ragged, decode
+
+
+def kernel_line(torch, rpa, cg, counts, split_counts, args, split_args, spec, timer):
+    main = attention_entry(torch, rpa, args["ragged_paged_attention"], spec, timer)
+    log(f"  ragged_paged_attention, heaviest main-path call: {main}")
+    dmain = decode_entry(torch, rpa, split_args["paged_attention"], spec, timer)
+    log(f"  paged_attention, heaviest split-path call: {dmain}")
+    long_ragged, long_decode = long_context_entries(torch, rpa, spec, timer)
+    shape, dshape = main.pop("shape"), dmain.pop("shape")
     out = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/ragged_paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:217",
         "launches": counts["ragged_paged_attention"], **main,
-        "library_ms": None, "shape": shape, "long_context": long_context,
+        "library_ms": None, "shape": shape, "long_context": long_ragged,
+    }, {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:87",
+        "launches": split_counts["paged_attention"], **dmain,
+        "library_ms": None, "shape": dshape, "long_context": long_decode,
     }]
-    pool, ids = cg_args
+    pool, ids = args["checkpoint_gather"]
     got = cg.checkpoint_gather(pool, ids)
     want = cg.checkpoint_gather_ref(pool, ids)
     if not torch.equal(got, want):
@@ -415,7 +582,34 @@ def kernel_line(torch, rpa, cg, counts, rpa_args, cg_args, spec, timer):
     return out
 
 
+def calibrated_serves(torch, serve_mod, uncalibrated):
+    """Phase 6: calibrate a bf16 engine of each path, print its profile, and
+    serve phase 3's workload on it; measured against predicted seconds per
+    iteration beside the uncalibrated runs' figures."""
+    names = ("c0 (s)", "prefill token", "prefill attention token", "decode token",
+             "decode context token")
+    for path, extra in (("fused", []), ("split", ["--no-fused-batch"])):
+        t0 = time.perf_counter()
+        res = serve(serve_mod, SERVE_ARGV + extra + ["--calibrate"])
+        eng = res["engine"]
+        prof = eng.profile
+        if prof is None or eng.sched.model is not prof:
+            raise AssertionError(f"{path}: calibrate() installed no measured profile")
+        coef = ", ".join(f"{n} {c:.4g}" for n, c in zip(names, prof._coef))
+        log(f"  {path}: {len(prof.samples)} probes + {len(prof.swap_samples)} swap probes; "
+            f"profile s/iteration = {coef}; swap {prof._swap_coef.tolist()}; "
+            f"calibration and serving took {time.perf_counter() - t0:.1f} s")
+        reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
+        if any(len(r.output_tokens) != MAX_NEW for r in reqs):
+            raise AssertionError(f"{path}: a request lacks tokens after calibration")
+        log(f"  {path} uncalibrated (phase 3{'b' if extra else ''}): {uncalibrated[path]}")
+        log(f"  {path} calibrated: {iteration_figures(eng)}")
+        del res, eng
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
+    kernels_only = "--kernels-only" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -451,33 +645,58 @@ def main() -> int:
 
     log("[2] kernels vs their plain versions on the card")
     check_kernels(torch, ops, rpa, cg)
+    spec = h100_spec(torch.cuda.get_device_name(0))
+    if kernels_only:
+        log("[5] attention kernels at 2-4 thousand-token contexts")
+        long_context_entries(torch, rpa, spec, Timer(torch))
+        log(f"  card: {smi}; total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     log("[3] serve Llama-2-7B at full width through repro_torch.launch.serve.run_real")
-    res, counts, argv, rpa_args, cg_args = run_main_path(torch, ops, serve_mod, tf)
+    res, counts, args = run_serve(torch, ops, serve_mod, tf, SERVE_ARGV)
+    uncalibrated = {"fused": iteration_figures(res["engine"])}
     profile_steps(torch, res["engine"])
     del res
     torch.cuda.empty_cache()
 
-    log("[4] self-consistency at fp32: preempted vs uninterrupted vs prefix cache off")
-    argv32 = [a if a != "bfloat16" else "float32" for a in argv]
+    log("[3b] the same workload on the split path (--no-fused-batch)")
+    res, split_counts, split_args = run_serve(torch, ops, serve_mod, tf,
+                                              SERVE_ARGV + ["--no-fused-batch"])
+    uncalibrated["split"] = iteration_figures(res["engine"])
+    check_split_reads_nothing_back(torch, tf, res["engine"])
+    profile_steps(torch, res["engine"])
+    del res
+    torch.cuda.empty_cache()
+
+    log("[4] self-consistency at fp32: preempted vs uninterrupted vs prefix cache off "
+        "vs split path")
+    argv32 = [a if a != "bfloat16" else "float32" for a in SERVE_ARGV]
     runs = {}
-    for name, extra in (("preempted", ["--num-device-blocks", "56"]),
+    for name, extra in (("preempted", []),
                         ("uninterrupted", ["--num-device-blocks", "512"]),
-                        ("prefix cache off", ["--num-device-blocks", "56", "--no-prefix-cache"])):
+                        ("prefix cache off", ["--no-prefix-cache"]),
+                        ("split preempted", ["--no-fused-batch"])):
         res = serve(serve_mod, argv32 + extra)
         log(f"  {name}: preemptions={res['preemptions']} steps={res['engine'].steps} "
             f"{res['generated'] / res['seconds']:.1f} tok/s")
         runs[name] = (res["preemptions"], offline_tokens(res))
         del res
         torch.cuda.empty_cache()
-    if runs["preempted"][0] == 0 or runs["uninterrupted"][0] != 0:
-        raise AssertionError("phase 4 did not contrast a preempted and an uninterrupted run")
+    if (runs["preempted"][0] == 0 or runs["split preempted"][0] == 0
+            or runs["uninterrupted"][0] != 0):
+        raise AssertionError("phase 4 did not contrast preempted and uninterrupted runs")
     compare_runs("preempted vs uninterrupted", runs["preempted"][1], runs["uninterrupted"][1])
     compare_runs("prefix cache on vs off", runs["preempted"][1], runs["prefix cache off"][1])
+    compare_runs("split vs fused, preempted", runs["split preempted"][1], runs["preempted"][1])
 
-    log("[5] kernels at the main path's captured inputs")
-    spec = h100_spec(torch.cuda.get_device_name(0))
-    line = kernel_line(torch, rpa, cg, counts, rpa_args, cg_args, spec, Timer(torch))
+    log("[5] kernels at their paths' captured inputs")
+    line = kernel_line(torch, rpa, cg, counts, split_counts, args, split_args, spec,
+                       Timer(torch))
+    del args, split_args
+    torch.cuda.empty_cache()
+
+    log("[6] calibration of both paths, then phase 3's workload on each")
+    calibrated_serves(torch, serve_mod, uncalibrated)
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

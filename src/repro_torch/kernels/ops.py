@@ -8,14 +8,20 @@ from __future__ import annotations
 
 import torch
 
-from ..kvcache.cache_ops import checkpoint_gather_ref, ragged_paged_attention_ref
-from . import kv_checkpoint, paged_attention
+from ..kvcache.cache_ops import (
+    checkpoint_gather_ref,
+    paged_attention_ref,
+    ragged_paged_attention_ref,
+)
+from . import kv_checkpoint
+from . import paged_attention as _attention
 
-__all__ = ["ragged_paged_attention", "checkpoint_gather", "reset_launch_counts",
-           "launch_counts"]
+__all__ = ["ragged_paged_attention", "paged_attention", "checkpoint_gather",
+           "reset_launch_counts", "launch_counts"]
 
 KERNELS = {
-    "ragged_paged_attention": paged_attention.ragged_paged_attention,
+    "ragged_paged_attention": _attention.ragged_paged_attention,
+    "paged_attention": _attention.paged_attention,
     "checkpoint_gather": kv_checkpoint.checkpoint_gather,
 }
 
@@ -30,13 +36,27 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_positions,
                            kv_lens, *, logit_softcap=0.0):
     """Fused mixed-batch attention over the paged pool (DESIGN.md §12)."""
     if _device_type(q) == "cuda":
-        return paged_attention.ragged_paged_attention(
+        return _attention.ragged_paged_attention(
             q, k_pool, v_pool, block_tables, q_positions, kv_lens,
             logit_softcap=logit_softcap,
         )
     return ragged_paged_attention_ref(
         q, k_pool, v_pool, block_tables, q_positions, kv_lens,
         logit_softcap=logit_softcap,
+    )
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
+                    logit_softcap=0.0):
+    """Decode attention, one query token per sequence, over the paged pool
+    (the split serving path)."""
+    if _device_type(q) == "cuda":
+        return _attention.paged_attention(
+            q, k_pool, v_pool, block_tables, seq_lens,
+            logit_softcap=logit_softcap,
+        )
+    return paged_attention_ref(
+        q, k_pool, v_pool, block_tables, seq_lens, logit_softcap=logit_softcap,
     )
 
 

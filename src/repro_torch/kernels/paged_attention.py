@@ -1,11 +1,15 @@
-"""Fused ragged paged attention: the wrapper of the hand-written CUDA kernel
-``csrc/ragged_paged_attention.cu``, which replaces the Pallas TPU kernel
-``src/repro/kernels/paged_attention.py::ragged_paged_attention``.
+"""Paged attention: the wrappers of two hand-written CUDA kernels, each
+replacing a Pallas TPU kernel of ``src/repro/kernels/paged_attention.py``:
 
-The wrapper takes CUDA tensors only and launches the kernel or raises.  Its
-plain version, ``ragged_paged_attention_ref`` (from ``kvcache.cache_ops``),
-is what ``kernels.ops`` uses for CPU tensors and what the kernel is held
-against on the card.
+* ``ragged_paged_attention`` (``csrc/ragged_paged_attention.cu``): the fused
+  mixed batch of prefill chunks and decodes;
+* ``paged_attention`` (``csrc/paged_attention.cu``): decode, one query token
+  per sequence (the split serving path).
+
+The wrappers take CUDA tensors only and launch their kernel or raise.  Their
+plain versions, ``ragged_paged_attention_ref`` and ``paged_attention_ref``
+(from ``kvcache.cache_ops``), are what ``kernels.ops`` uses for CPU tensors
+and what the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -13,7 +17,10 @@ import ctypes
 
 import torch
 
-from ..kvcache.cache_ops import ragged_paged_attention_ref  # noqa: F401
+from ..kvcache.cache_ops import (  # noqa: F401
+    paged_attention_ref,
+    ragged_paged_attention_ref,
+)
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,3 +93,80 @@ def ragged_paged_attention(
 
 
 ragged_paged_attention.launches = 0
+
+
+# The decode kernel keeps G * D fp32 accumulators in registers across its
+# 128 threads (8 each), and a ring of 4 pages in shared memory; a larger
+# G * D or page is refused.
+MAX_GROUP_WIDTH = 1024
+MAX_PAGE = 32
+
+
+def _decode_lib():
+    fn = build.load("paged_attention").paged_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
+                       ctypes.c_float, ctypes.c_float, p]
+        fn.restype = i
+    return fn
+
+
+def paged_attention(
+    q: torch.Tensor,  # (B, H, D)
+    k_pool: torch.Tensor,  # (N, page, Hkv, D)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, M) int32, -1 padded
+    seq_lens: torch.Tensor,  # (B,) int32, valid tokens incl. the current one
+    *,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Launch the paged decode attention kernel.  Returns (B, H, D) in the
+    dtype of ``q``.  ``paged_attention.launches`` counts the launches."""
+    tensors = (q, k_pool, v_pool, block_tables, seq_lens)
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("paged_attention: all tensors must be on one CUDA device")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(f"paged_attention: q/k/v must share float32 or bfloat16, got "
+                         f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("paged_attention: block_tables and seq_lens must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention: all tensors must be contiguous")
+    b, h, d = q.shape
+    n, page, hkv, dk = k_pool.shape
+    if (
+        v_pool.shape != k_pool.shape or dk != d or h % hkv
+        or block_tables.ndim != 2 or block_tables.shape[0] != b
+        or seq_lens.shape != (b,)
+    ):
+        raise ValueError(
+            f"paged_attention: bad shapes q{tuple(q.shape)} pool{tuple(k_pool.shape)} "
+            f"tables{tuple(block_tables.shape)} seq_lens{tuple(seq_lens.shape)}"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head dim {d} not in {HEAD_DIMS}")
+    if (h // hkv) * d > MAX_GROUP_WIDTH or page > MAX_PAGE:
+        raise ValueError(f"paged_attention: group width {(h // hkv) * d} > "
+                         f"{MAX_GROUP_WIDTH} or page {page} > {MAX_PAGE}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attention: pools must be 16-byte aligned")
+    if b > 65535 or hkv > 65535:
+        raise ValueError("paged_attention: too many sequences or KV heads for the grid")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    rc = _decode_lib()(
+        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        b, h, hkv, d, page, block_tables.shape[1],
+        float(d) ** -0.5, float(logit_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_attention: CUDA error {rc} at launch")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

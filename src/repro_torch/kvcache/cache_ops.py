@@ -19,6 +19,76 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def _scatter_kept(
+    pool: torch.Tensor,  # (num_blocks, bs, Hkv, D), contiguous
+    rows: torch.Tensor,  # (T,) block row per token, any value
+    offsets: torch.Tensor,  # (T,) slot within the block
+    keep: torch.Tensor,  # (T,) bool: False drops the write
+    new: torch.Tensor,  # (T, Hkv, D)
+) -> None:
+    """``pool[rows[i], offsets[i]] = new[i]`` for the kept ``i``, in place,
+    with no read-back of ``keep`` to the host.
+
+    A dropped write is turned into a copy of the first kept write (same
+    slot, same value), so the duplicate is harmless in any order; when
+    nothing is kept it rewrites slot 0 with its own value.  The first kept
+    index stays a one-element tensor (``index_select``, never ``x[t]`` with
+    a 0-d tensor ``t``, which reads ``t`` back to the host)."""
+    n, bs = pool.shape[:2]
+    flat = pool.view(n * bs, *pool.shape[2:])
+    dst = rows.long().clamp(0, n - 1) * bs + offsets.long()
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)  # 0 if none is kept
+    any_kept = keep.index_select(0, first)  # (1,)
+    fill_dst = torch.where(any_kept, dst.index_select(0, first), 0)
+    fill_val = torch.where(any_kept[:, None, None], new.index_select(0, first), flat[:1])
+    dst = torch.where(keep, dst, fill_dst)
+    val = torch.where(keep[:, None, None], new, fill_val.to(new.dtype))
+    flat.index_copy_(0, dst, val.to(pool.dtype))
+
+
+def append_paged(
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # (B, Hkv, D) — one token per sequence
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, M)
+    seq_lens: torch.Tensor,  # (B,) length BEFORE the append
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter one new token per sequence into its tail block, in place.
+
+    Negative (padding) table entries and positions past the table width
+    drop the write instead of aliasing a real block, as in the reference."""
+    bs, m = k_pool.shape[1], block_tables.shape[1]
+    col = seq_lens.long() // bs
+    rows = block_tables.gather(1, col.clamp(0, m - 1)[:, None])[:, 0]
+    keep = (rows >= 0) & (rows < k_pool.shape[0]) & (col < m)
+    _scatter_kept(k_pool, rows, seq_lens % bs, keep, k_new)
+    _scatter_kept(v_pool, rows, seq_lens % bs, keep, v_new)
+    return k_pool, v_pool
+
+
+def write_paged_chunk(
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # (B, L, Hkv, D) — chunked-prefill tokens
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, M)
+    positions: torch.Tensor,  # (B, L) absolute token positions of the chunk
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter a multi-token prefill chunk into each sequence's blocks, in
+    place.  Positions landing on padding (negative table entries, or beyond
+    the table width) drop the write rather than aliasing a real block."""
+    bs, m = k_pool.shape[1], block_tables.shape[1]
+    col = positions.long() // bs
+    rows = block_tables.gather(1, col.clamp(0, m - 1))  # (B, L)
+    keep = (rows >= 0) & (rows < k_pool.shape[0]) & (col < m)
+    offs = (positions % bs).reshape(-1)
+    rows, keep = rows.reshape(-1), keep.reshape(-1)
+    _scatter_kept(k_pool, rows, offs, keep, k_new.reshape(-1, *k_new.shape[2:]))
+    _scatter_kept(v_pool, rows, offs, keep, v_new.reshape(-1, *v_new.shape[2:]))
+    return k_pool, v_pool
+
+
 def write_ragged(
     k_pool: torch.Tensor,
     v_pool: torch.Tensor,
@@ -68,6 +138,44 @@ def gather_paged(
     gathered = pool[tables.clamp(min=0)]  # (B, m, bs, Hkv, D)
     gathered = gathered.masked_fill((tables < 0)[:, :, None, None, None], 0)
     return gathered.reshape(tables.shape[0], m * bs, *pool.shape[2:])
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # (B, H, D) — single decode token per sequence
+    k_pool: torch.Tensor,  # (num_blocks, bs, Hkv, D)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, M)
+    seq_lens: torch.Tensor,  # (B,) tokens valid in the cache (incl. current)
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Plain version of the decode attention kernel.  Returns (B, H, D) in
+    the dtype of ``q``.
+
+    Keeps key ``t`` iff ``t < seq_len`` and its page's table entry is not
+    negative; masked scores are -1e30 (after the softcap) and the softmax
+    runs in fp32.  A row that keeps no key (``seq_len = 0``) comes out 0,
+    as the Pallas kernel's safe divisor gives.  A negative entry below
+    ``seq_len`` never occurs in the engine; the reference's kernel reads
+    page 0 there and its jnp oracle zeros, so the port masks it."""
+    b, h, d = q.shape
+    bs = k_pool.shape[1]
+    m = block_tables.shape[1]
+    max_ctx = m * bs
+    k = gather_paged(k_pool, block_tables, max_ctx).float()  # (B, T, Hkv, D)
+    v = gather_paged(v_pool, block_tables, max_ctx).float()
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    scores = torch.einsum("bhgd,bthd->bhgt", qg, k) * (d**-0.5)
+    if logit_softcap:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    pos = torch.arange(max_ctx, device=q.device)
+    valid = (pos[None, :] < seq_lens[:, None]) & (
+        block_tables.repeat_interleave(bs, dim=1) >= 0
+    )  # (B, T)
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = F.softmax(scores, dim=-1) * valid.any(-1)[:, None, None, None]
+    out = torch.einsum("bhgt,bthd->bhgd", probs, v)
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def ragged_paged_attention_ref(

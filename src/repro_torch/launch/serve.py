@@ -5,9 +5,14 @@ the CPU), puts a ``Frontend`` in front of it, submits online streams and one
 offline batch job, and runs the engine until both are done.  Weights are
 random, drawn from ``--seed``.  Without ``--full`` the config is the
 ``.reduced()`` smoke variant; with it, the published width and depth.
+``--no-fused-batch`` serves through the split per-family dispatches instead
+of the fused ragged batch; ``--calibrate`` measures the engine's dispatches
+on the device and installs the fitted latency model before serving.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full \
+      --no-fused-batch --calibrate
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
       --device cpu --dtype float32 --online 2 --offline 4 --max-new 8
 """
@@ -39,6 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine steps to run before the online streams "
                          "arrive (0: they arrive first)")
     ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--no-fused-batch", action="store_true",
+                    help="the split prefill / decode dispatches "
+                         "(RealEngineConfig(fused_batch=False))")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="calibrate the latency model on the device first")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -66,9 +76,12 @@ def run_real(args, *, record_margins: bool = False) -> dict:
             max_model_len=max(256, args.prompt_len // 4 + args.max_new),
             num_device_blocks=args.num_device_blocks,
             prefix_cache=not args.no_prefix_cache,
+            fused_batch=not args.no_fused_batch,
         ),
         device=device,
     )
+    if args.calibrate:
+        eng.calibrate()
     if record_margins:
         eng.margins = {}
     fe = Frontend(eng)
@@ -105,7 +118,8 @@ def main(argv=None) -> None:
     res = run_real(args)
     eng, cfg = res["engine"], res["cfg"]
     width = "full" if args.full else "reduced"
-    print(f"arch={cfg.name} ({width}, {args.dtype}) on {eng.device}")
+    path = "fused" if eng.fused else "split"
+    print(f"arch={cfg.name} ({width}, {args.dtype}, {path} path) on {eng.device}")
     for i, h in enumerate(res["streams"]):
         print(f"stream {i}: {h.poll()}")
     print(f"batch job done={res['job'].done} progress={res['job'].progress:.0%}")
@@ -113,6 +127,10 @@ def main(argv=None) -> None:
           f"ckpt_blocks={eng.ckpt.stats.blocks_checkpointed} "
           f"generated={res['generated']} in {res['seconds']:.2f}s "
           f"({res['generated'] / res['seconds']:.1f} tok/s)")
+    model = "measured" if eng.profile is not None else "analytical prior"
+    iters = max(1, eng.measured_iters)
+    print(f"seconds per iteration: measured {eng.measured_iter_seconds / iters:.4f}, "
+          f"predicted by the {model} {eng.predicted_iter_seconds / iters:.4f}")
 
 
 if __name__ == "__main__":

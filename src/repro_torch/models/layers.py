@@ -1,20 +1,27 @@
-"""Layers of the fused paged serving path, in PyTorch.
+"""Layers of the paged serving paths, in PyTorch.
 
 Counterparts of ``src/repro/models/layers.py``: rmsnorm, split-half RoPE,
-the QKV / output projections, the MLP and the fused ragged paged attention.
+the QKV / output projections, the MLP, the fused ragged paged attention,
+and the split path's paged prefill and decode attention.
 Layouts are the reference's, so tests compare like with like:
 activations (B, T, d_model), projections ``wq (d, H, hd)``, ``wo (H, hd, d)``,
 paged pools (num_blocks, block_size, Hkv, D).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
-from ..kvcache.cache_ops import write_ragged
+from ..kvcache.cache_ops import (
+    NEG_INF,
+    append_paged,
+    gather_paged,
+    write_paged_chunk,
+    write_ragged,
+)
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -87,6 +94,84 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if "b_down" in p:
         down = down + p["b_down"]
     return down
+
+
+def gqa_scores_softmax_values(
+    q: torch.Tensor,  # (B, Tq, H, D)
+    k: torch.Tensor,  # (B, Tk, Hkv, D)
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],  # broadcastable to (B, 1, Tq, Tk)
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Grouped-query attention with an fp32 softmax; masked scores are
+    -1e30.  Returns (B, Tq, H, D) in the dtype of ``q``."""
+    b, tq, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, tq, hkv, h // hkv, d).float()
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * (d**-0.5)
+    if logit_softcap:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    if mask is not None:
+        keep = mask[:, :, None, :, :] if mask.ndim == 4 else mask
+        scores = scores.masked_fill(~keep, NEG_INF)
+    probs = F.softmax(scores, dim=-1)
+    out = torch.einsum("bhgts,bshd->bthgd", probs, v.float())
+    return out.reshape(b, tq, h, d).to(q.dtype)
+
+
+def causal_mask(q_positions: torch.Tensor, k_positions: torch.Tensor) -> torch.Tensor:
+    """(B, Tq), (B, Tk) -> bool (B, 1, Tq, Tk): True = attend.  The paged
+    paths never run sliding-window archs, so the window is left out."""
+    return k_positions[:, None, None, :] <= q_positions[:, None, :, None]
+
+
+def paged_prefill_attention(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, L, d_model) — prefill chunk
+    pool: Dict[str, torch.Tensor],  # this layer's {"k", "v"}, updated in place
+    block_tables: torch.Tensor,  # (B, M)
+    positions: torch.Tensor,  # (B, L) absolute positions of the chunk
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked prefill against the shared paged pool: scatter the chunk's
+    roped KV into the pool, then attend causally over the gathered
+    per-sequence context.  The reference runs this in plain jnp (no
+    kernel), so plain PyTorch is its port."""
+    q, k, v = project_qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    write_paged_chunk(pool["k"], pool["v"], k, v, block_tables, positions)
+    max_ctx = block_tables.shape[1] * pool["k"].shape[1]
+    kk = gather_paged(pool["k"], block_tables, max_ctx)  # (B, T, Hkv, D)
+    vv = gather_paged(pool["v"], block_tables, max_ctx)
+    kv_pos = torch.arange(max_ctx, device=x.device).expand(x.shape[0], max_ctx)
+    # causal masking doubles as the validity mask: slots at kv_pos <= q_pos
+    # were all written by this sequence
+    attn = gqa_scores_softmax_values(q, kk, vv, causal_mask(positions, kv_pos),
+                                     cfg.logit_softcap)
+    return out_proj(p, attn), pool
+
+
+def paged_decode_attention(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, 1, d_model)
+    pool: Dict[str, torch.Tensor],  # this layer's {"k", "v"}, updated in place
+    block_tables: torch.Tensor,  # (B, M)
+    positions: torch.Tensor,  # (B, 1) — the new token's absolute position
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode against the shared paged pool: append the token's
+    KV, then the paged decode attention kernel (CUDA) or its plain version
+    (CPU)."""
+    q, k, v = project_qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    append_paged(pool["k"], pool["v"], k[:, 0], v[:, 0], block_tables, positions[:, 0])
+    out = kernel_ops.paged_attention(
+        q[:, 0], pool["k"], pool["v"], block_tables, positions[:, 0] + 1,
+        logit_softcap=cfg.logit_softcap,
+    )
+    return out_proj(p, out[:, None]), pool
 
 
 class RaggedMeta(NamedTuple):

@@ -1,7 +1,8 @@
-"""The decoder stack on the fused paged serving path, in PyTorch.
+"""The decoder stack on the paged serving paths, in PyTorch.
 
-Counterpart of the fused entry points of ``src/repro/models/transformer.py``
-(DESIGN.md §12).  Parameters keep the reference's nested-dict layout with
+Counterpart of the paged entry points of ``src/repro/models/transformer.py``:
+the fused ragged batch (DESIGN.md §12) and the split per-family prefill
+chunk and decode step (``RealEngineConfig(fused_batch=False)``).  Parameters keep the reference's nested-dict layout with
 period-major stacking: every leaf under ``params["layers"][str(i)]`` has a
 leading ``num_periods`` axis, and so do the paged pools.  Two changes from
 the reference: the ``lax.scan`` over periods is a Python loop, and the
@@ -16,12 +17,19 @@ ROADMAP Queue 1 item 9.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .config import FFN_DENSE, MIXER_ATTN, ModelConfig
-from .layers import RaggedMeta, mlp, paged_ragged_attention, rmsnorm
+from .layers import (
+    RaggedMeta,
+    mlp,
+    paged_decode_attention,
+    paged_prefill_attention,
+    paged_ragged_attention,
+    rmsnorm,
+)
 
 PyTree = Any
 
@@ -180,22 +188,33 @@ def run_periods(
     layer_params: PyTree,  # period-stacked params["layers"]
     lo: int,
     num: int,
-    x: torch.Tensor,  # (1, T, d)
+    x: torch.Tensor,  # (1, T, d) ragged; (B, L, d) prefill; (B, 1, d) decode
     pools: Dict[str, PyTree],  # period-stacked pools, updated in place
     block_tables: torch.Tensor,
-    positions: torch.Tensor,  # (1, T)
-    meta: RaggedMeta,
+    positions: torch.Tensor,  # same leading shape as x
+    meta: Optional[RaggedMeta] = None,  # the fused ragged batch's addressing
+    mode: str = "ragged",  # "ragged" | "prefill" | "decode"
 ) -> torch.Tensor:
-    """Periods [lo, lo + num) of the fused ragged stack; returns x."""
+    """Periods [lo, lo + num) of the paged stack; returns x.  ``mode``
+    picks each layer's attention: the fused ragged batch (with ``meta``),
+    or the split path's prefill chunk or one-token decode."""
+    if (mode == "ragged") != (meta is not None) or mode not in (
+        "ragged", "prefill", "decode"
+    ):
+        raise ValueError(f"mode {mode!r} with meta={meta is not None}")
     pattern = cfg.layer_pattern()
     for per in range(lo, lo + num):
         for i, _spec in enumerate(pattern):
             lp = _period(layer_params[str(i)], per)
             pool = _period(pools[str(i)], per)  # in-place views of the pools
             h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-            mix, _ = paged_ragged_attention(
-                cfg, lp["mixer"], h, pool, block_tables, positions, meta
-            )
+            if mode == "ragged":
+                mix, _ = paged_ragged_attention(
+                    cfg, lp["mixer"], h, pool, block_tables, positions, meta
+                )
+            else:
+                attn = paged_decode_attention if mode == "decode" else paged_prefill_attention
+                mix, _ = attn(cfg, lp["mixer"], h, pool, block_tables, positions)
             x = x + mix
             if "ffn" in lp:
                 x = x + mlp(cfg, lp["ffn"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
@@ -238,6 +257,89 @@ def run_tokens_paged_at(
     x = run_periods(cfg, params["layers"], lo, seg_periods, x, pools,
                     block_tables, positions, meta)
     return x, pools
+
+
+# ---------------------------------------------------------------------------
+# Split per-family entry points (RealEngineConfig(fused_batch=False)): the
+# differential oracle of the fused path
+# ---------------------------------------------------------------------------
+
+
+def prefill_chunk_paged(
+    cfg: ModelConfig,
+    params: PyTree,
+    tokens: torch.Tensor,  # (B, L) chunk tokens (L may be bucket-padded)
+    pools: Dict[str, PyTree],
+    block_tables: torch.Tensor,  # (B, M) physical block ids
+    offsets: torch.Tensor,  # (B,) tokens already prefilled per sequence
+    last_index: Optional[torch.Tensor] = None,  # (B,) logits position
+) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """Chunked prefill on the paged layout.  Returns ((B, V) logits of each
+    row's ``last_index`` token, or of its last token, and the pools, updated
+    in place).  Padded positions write junk KV only into slots rewritten
+    before they are read, into the scratch row, or past the table (dropped)."""
+    _check_supported(cfg)
+    x = embed(cfg, params, tokens)
+    b, l = tokens.shape
+    positions = offsets[:, None] + torch.arange(l, dtype=offsets.dtype,
+                                                device=offsets.device)[None, :]
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, pools,
+                    block_tables, positions, mode="prefill")
+    if last_index is None:
+        xl = x[:, -1:, :]
+    else:
+        xl = x[torch.arange(b, device=x.device), last_index.long()][:, None, :]
+    return lm_head(cfg, params, xl)[:, 0, :], pools
+
+
+def decode_step_paged(
+    cfg: ModelConfig,
+    params: PyTree,
+    last_tokens: torch.Tensor,  # (B,) int32
+    pools: Dict[str, PyTree],
+    block_tables: torch.Tensor,  # (B, M)
+    seq_lens: torch.Tensor,  # (B,) current lengths (the new token's position)
+) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """One decode iteration on the paged layout.  Returns ((B, V) logits,
+    pools updated in place)."""
+    _check_supported(cfg)
+    x = embed(cfg, params, last_tokens[:, None])
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, pools,
+                    block_tables, seq_lens[:, None], mode="decode")
+    return lm_head(cfg, params, x)[:, 0, :], pools
+
+
+def run_segment_paged_at(
+    cfg: ModelConfig,
+    params: PyTree,
+    seg_periods: int,  # periods in this segment
+    lo: int,  # starting period
+    x: torch.Tensor,  # (B, 1, d)
+    pools: Dict[str, PyTree],
+    block_tables: torch.Tensor,
+    positions: torch.Tensor,  # (B, 1)
+) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """One preemptible decode segment on the paged layout (paper §4.3
+    safepoints).  Pool writes of an aborted iteration land at the
+    not-yet-committed position and are rewritten verbatim on re-execution."""
+    x = run_periods(cfg, params["layers"], lo, seg_periods, x, pools,
+                    block_tables, positions, mode="decode")
+    return x, pools
+
+
+def run_segment_paged(
+    cfg: ModelConfig,
+    params: PyTree,
+    seg: int,
+    x: torch.Tensor,
+    pools: Dict[str, PyTree],
+    block_tables: torch.Tensor,
+    positions: torch.Tensor,
+) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """``run_segment_paged_at`` addressed by segment index."""
+    lo, hi = segment_bounds(cfg, seg)
+    return run_segment_paged_at(cfg, params, hi - lo, lo, x, pools,
+                                block_tables, positions)
 
 
 # ---------------------------------------------------------------------------

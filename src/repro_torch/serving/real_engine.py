@@ -3,20 +3,31 @@
 a CUDA card (or the CPU, when the caller asks for it).
 
 Counterpart of ``src/repro/serving/real_engine.py`` restricted to its
-default hot path: the paged KV pool, the fused ragged batch
-(``fused_batch=True``), the serial engine (``pipeline=False``) and a single
-device (``mesh=None``).  Any other setting raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+paged serial single-device paths: the paged KV pool, the fused ragged batch
+(``fused_batch=True``, the default) or the split per-family dispatches
+(``fused_batch=False``, the fused path's differential oracle), the serial
+engine (``pipeline=False``) and a single device (``mesh=None``).  Any other
+setting raises ``NotImplementedError`` naming the ROADMAP item that brings
+it.
 
 * Physical KV layout: shared pools ``(num_periods, num_device_blocks + 1,
   block_size, Hkv, D)`` per pattern position, updated in place; the last
   row is a scratch block that absorbs writes from padded tokens.
-* Every iteration lowers the whole ``IterationPlan`` (online decodes plus
-  offline prefill chunks) to ONE flattened ragged token batch
+* Fused: every iteration lowers the whole ``IterationPlan`` (online decodes
+  plus offline prefill chunks) to ONE flattened ragged token batch
   (``_build_ragged``), padded to power-of-two (T, S, Qmax) buckets, and runs
   it one K-layer segment at a time with safepoint checks between segments.
   Each layer scatters the new KV and runs the ragged paged-attention kernel
   once.
+* Split: the plan's prefill chunks run as bucket-batched
+  ``prefill_chunk_paged`` dispatches (plain attention over the gathered
+  context, as in the reference), then its decodes as one
+  ``decode_step_paged`` at a power-of-two batch bucket, segment by segment
+  when the plan is preemptible; each decode layer runs the paged decode
+  attention kernel once.
+* ``calibrate()`` times the engine's own dispatches over the serve-time
+  shape grid on the host clock (dispatch plus device synchronisation) and
+  installs the fitted ``MeasuredProfiler`` as the scheduler's latency model.
 * Incremental checkpointing gathers the chosen pages of every period-stacked
   pool leaf with the ``checkpoint_gather`` kernel into one device staging
   buffer, copies it to pinned host memory in one transfer, and stores one
@@ -37,7 +48,15 @@ from ..core.budget import pow2_bucket
 from ..core.checkpoint import AdaptiveCheckpointPolicy, Checkpointer, HostKVStore
 from ..core.faults import InjectedFault, RequestFailed
 from ..core.preemption import PreemptionFlag, SegmentedExecution
-from ..core.profiler import AnalyticalCostModel, block_bytes, h100_spec
+from ..core.profiler import (
+    AnalyticalCostModel,
+    BatchShape,
+    CalibrationGrid,
+    MeasuredProfiler,
+    block_bytes,
+    calibrate,
+    h100_spec,
+)
 from ..core.request import Request
 from ..core.scheduler import SchedulerConfig, UnifiedScheduler
 from ..core.slo import SLO
@@ -78,11 +97,17 @@ class RealEngineConfig:
     enable_checkpointing: bool = True
     enable_safepoints: bool = True
     max_steps: int = 100_000
-    # "auto" or "paged": the fused paged path; "contiguous" is not ported
+    # "auto" or "paged": the paged paths; "contiguous" is not ported
     backend: str = "auto"
+    # largest batched-prefill dispatch of the split path (a bigger prefill
+    # wave is split into several dispatches, each boundary a safepoint of
+    # pure-offline plans); the fused path has no per-dispatch batch cap
+    max_prefill_batch: int = 8
+    # Fused mixed-batch execution (DESIGN.md §12); False runs the split
+    # per-family dispatches, the fused path's differential oracle.
+    fused_batch: bool = True
     # The settings below exist for parity with the reference; only their
     # defaults run in the port.
-    fused_batch: bool = True
     pipeline: bool = False
     mesh: Optional[Any] = None
     # Shared-prefix KV caching with copy-on-write block sharing (§14).
@@ -110,11 +135,6 @@ class RealEngine:
                 "the contiguous fallback is not ported yet (ROADMAP Queue 1 "
                 "item 9)"
             )
-        if not eng_cfg.fused_batch:
-            raise NotImplementedError(
-                "the split fused_batch=False paths are not ported yet (ROADMAP "
-                "Queue 1 item 7)"
-            )
         if eng_cfg.pipeline:
             raise NotImplementedError(
                 "the async pipeline is not ported yet (ROADMAP Queue 1 item 6)"
@@ -129,6 +149,7 @@ class RealEngine:
         self.params = to_device(params, self.device)
         self.dtype = self.params["embed"].dtype
         self.ec = eng_cfg
+        self.fused = eng_cfg.fused_batch
         self.sampling = sampling
         self._clock = clock or time.perf_counter
 
@@ -173,7 +194,12 @@ class RealEngine:
         self.cow_dispatches = 0  # COW block-copy rounds run on device
         self.ckpt_gathers = 0  # checkpoint gather rounds (one staging copy each)
         self.restored_blocks = 0  # host blocks scattered back by resumes
-        self.dispatches: Dict[str, int] = {"fused_segment": 0, "fused_logits": 0}
+        # model dispatches by entry point, under the reference's names
+        self.dispatches: Dict[str, int] = {
+            "prefill": 0, "decode": 0, "segment": 0,
+            "fused_segment": 0, "fused_logits": 0,
+        }
+        self.profile: Optional[MeasuredProfiler] = None  # set by calibrate()
         # Runtime hook: called at every safepoint of a pure-offline batch.
         self.arrival_poll: Optional[Callable[[], None]] = None
         # When a dict, each sampled token's top-1 minus top-2 logit is
@@ -218,11 +244,6 @@ class RealEngine:
             raise ValueError("real engine requires prompt token ids")
         if self.sched.on_online_arrival(req, self._clock()):
             self.flag.set()
-
-    def calibrate(self, *a, **k):
-        raise NotImplementedError(
-            "calibration is not ported yet (ROADMAP Queue 1 item 5)"
-        )
 
     def _on_safepoint(self, seg_idx: int) -> None:
         if self.arrival_poll is not None:
@@ -423,7 +444,14 @@ class RealEngine:
             # a flag left set after an un-aborted batch must not leak into a
             # later pure-offline iteration as a spurious abort
             self.flag.clear()
-        aborted = self._run_fused(plan, preemptible, tokens)
+        if self.fused:
+            aborted = self._run_fused(plan, preemptible, tokens)
+        else:
+            aborted = self._prefill_paged_batched(plan, preemptible, tokens)
+            if plan.decode_reqs and not aborted:
+                logits, aborted = self._decode_paged(plan.decode_reqs, preemptible)
+                if not aborted:
+                    self._sample(logits, plan.decode_reqs, tokens)
 
         sched.commit(plan, self._clock(), aborted=aborted, tokens=tokens)
         self._step_snap = None
@@ -455,8 +483,9 @@ class RealEngine:
     def _build_ragged(self, items: List[tuple]) -> Dict[str, np.ndarray]:
         """Lower one iteration's sequences to flat ragged-batch arrays.
 
-        ``items`` holds one ``(q_len, ctx_start, tokens, table)`` per
-        sequence.  T (total tokens), S (sequences) and Qmax (longest query
+        ``items`` holds one ``(q_len, ctx_start, tokens|None, table|None)``
+        per sequence; ``None`` builds a probe that addresses only the
+        scratch row.  T (total tokens), S (sequences) and Qmax (longest query
         run) pad to power-of-two buckets; padded tokens scatter to the
         scratch row and padded query / sequence slots compute values that
         nothing reads back."""
@@ -483,11 +512,13 @@ class RealEngine:
         for i, (qlen, ctx, toks, table) in enumerate(items):
             sl = slice(start, start + qlen)
             pos = ctx + np.arange(qlen, dtype=np.int32)
-            a["tokens"][sl] = toks
+            if toks is not None:
+                a["tokens"][sl] = toks
             a["positions"][sl] = pos
-            a["tables"][i] = table
-            a["dst_row"][sl] = table[pos // bs]
-            a["dst_off"][sl] = pos % bs
+            if table is not None:  # None: a calibration probe, scratch row only
+                a["tables"][i] = table
+                a["dst_row"][sl] = table[pos // bs]
+                a["dst_off"][sl] = pos % bs
             a["qpad"][i, :qlen] = start + np.arange(qlen, dtype=np.int32)
             a["q_pos"][i, :qlen] = pos
             a["kv_lens"][i] = ctx + qlen
@@ -596,22 +627,267 @@ class RealEngine:
             return True
         if samplers:
             rows = torch.tensor([i for i, _ in samplers], device=self.device)
-            sel = logits[rows]
-            toks = sample(sel, self.sampling, self._gen).cpu().numpy()
-            if self.margins is not None:
-                top2 = torch.topk(sel, 2, dim=-1).values.cpu().numpy()
-                for (_, r), (a, b) in zip(samplers, top2):
-                    self.margins.setdefault(r.request_id, []).append(
-                        float(a - b)
-                    )
-            for (_, r), t in zip(samplers, toks):
-                tokens[r.request_id] = int(t)
+            self._sample(logits[rows], [r for _, r in samplers], tokens)
             self._last_event = None  # the readback above drained the device
         elif self.device.type == "cuda":
             self._last_event = torch.cuda.Event()
             self._last_event.record()
         self._t_last_enqueue = time.perf_counter()
         return False
+
+    def _sample(self, logits: torch.Tensor, reqs: List[Request],
+                tokens: Dict[int, int]) -> None:
+        """One batched sample of ``logits`` (a row per request in ``reqs``)
+        into ``tokens``; records top-2 margins when ``self.margins`` is set."""
+        toks = sample(logits, self.sampling, self._gen).cpu().numpy()
+        if self.margins is not None:
+            top2 = torch.topk(logits, 2, dim=-1).values.cpu().numpy()
+            for r, (a, b) in zip(reqs, top2):
+                self.margins.setdefault(r.request_id, []).append(float(a - b))
+        for r, t in zip(reqs, toks):
+            tokens[r.request_id] = int(t)
+
+    # ------------------------------------------------ split per-family paths
+    @staticmethod
+    def _chunk_bucket(n: int) -> int:
+        return pow2_bucket(n, floor=8)
+
+    def _prefill_paged_batched(
+        self, plan, preemptible: bool, tokens: Dict[int, int]
+    ) -> bool:
+        """Run the plan's prefill chunks as bucket-batched dispatches.
+
+        Chunks group by padded length bucket; each group (at most
+        ``max_prefill_batch`` chunks) runs as ONE ``prefill_chunk_paged``
+        dispatch with the batch padded to a power of two.  Padded batch
+        rows address only the scratch row; padded positions write junk KV
+        into slots rewritten before they are read, or past the table
+        (dropped).  Group boundaries of a pure-offline plan are safepoints:
+        KV writes are positional and idempotent, so an aborted iteration
+        re-executes its chunks and rewrites the same bytes.  Returns True
+        if the iteration aborted at such a safepoint."""
+        groups: Dict[int, List] = {}
+        for chunk in plan.prefill_chunks:
+            groups.setdefault(self._chunk_bucket(chunk.length), []).append(chunk)
+        cap = max(1, self.ec.max_prefill_batch)
+        waves = []
+        for lpad in sorted(groups):
+            g = groups[lpad]
+            waves += [(lpad, g[i : i + cap]) for i in range(0, len(g), cap)]
+        for gi, (lpad, chunks) in enumerate(waves):
+            if preemptible and gi > 0:
+                t0 = time.perf_counter()
+                self._on_safepoint(gi)
+                hit = self.flag.is_set()
+                st = self.safepoints.stats
+                st.checks += 1
+                st.check_seconds += time.perf_counter() - t0
+                if hit:
+                    st.preemptions += 1
+                    self.flag.clear()
+                    return True
+            bp = pow2_bucket(len(chunks))
+            toks = np.zeros((bp, lpad), np.int32)
+            tables = np.full((bp, self._table_width), self._scratch_block, np.int32)
+            offs = np.zeros((bp,), np.int32)
+            last = np.zeros((bp,), np.int32)
+            for i, c in enumerate(chunks):
+                toks[i, : c.length] = self._tokens_of(c.request)[
+                    c.offset : c.offset + c.length
+                ]
+                tables[i] = self._block_table(c.request.request_id)
+                offs[i] = c.offset
+                last[i] = c.length - 1
+            self.dispatches["prefill"] += 1
+            logits, _ = tf.prefill_chunk_paged(
+                self.cfg, self.params, self._put(toks), self.pools,
+                self._put(tables), self._put(offs), self._put(last),
+            )
+            done = [
+                i for i, c in enumerate(chunks)
+                if c.offset + c.length == c.request.kv_target
+                and c.request.num_generated == 0
+            ]
+            if done:
+                rows = torch.tensor(done, device=self.device)
+                self._sample(logits[rows], [chunks[i].request for i in done], tokens)
+        return False
+
+    def _decode_paged(self, reqs: List[Request], use_safepoints: bool):
+        """Batched decode on the shared pool at a power-of-two batch
+        bucket; padded rows address only the scratch row.  Returns
+        ``(logits (len(reqs), V) | None, aborted)``."""
+        bsz = len(reqs)
+        bp = pow2_bucket(bsz)
+        tables = np.full((bp, self._table_width), self._scratch_block, np.int32)
+        last = np.zeros((bp,), np.int32)
+        lens = np.zeros((bp,), np.int32)
+        for i, r in enumerate(reqs):
+            tables[i] = self._block_table(r.request_id)
+            last[i] = self._tokens_of(r)[-1]
+            lens[i] = r.total_len - 1
+        last_t, tables_t, lens_t = self._put(last), self._put(tables), self._put(lens)
+        if use_safepoints:
+            logits, aborted = self._segmented_decode_paged(last_t, tables_t, lens_t)
+            if aborted:
+                return None, True
+        else:
+            self.dispatches["decode"] += 1
+            logits, _ = tf.decode_step_paged(
+                self.cfg, self.params, last_t, self.pools, tables_t, lens_t
+            )
+        return logits[:bsz], False
+
+    def _segmented_decode_paged(self, last, tables, positions_1d):
+        """Safepoint-instrumented paged decode: one dispatch per K-layer
+        segment, flag check between them (§4.3).  Pool writes of an aborted
+        attempt sit at the uncommitted position and are rewritten verbatim
+        on re-execution."""
+        x = tf.embed(self.cfg, self.params, last[:, None])
+        positions = positions_1d[:, None]
+
+        def seg(lo, pps, h):
+            h, _ = tf.run_segment_paged_at(
+                self.cfg, self.params, pps, lo, h, self.pools, tables, positions
+            )
+            return h
+
+        x, aborted = self._run_segments(x, seg, "segment", True)
+        if aborted:
+            return None, True
+        return tf.lm_head(self.cfg, self.params, x)[:, 0, :], False
+
+    # ----------------------------------------------------------- calibration
+    def calibrate(self, grid: Optional[CalibrationGrid] = None) -> MeasuredProfiler:
+        """On-device calibration pass (DESIGN.md §10).
+
+        Times the engine's own dispatches over the shapes serving runs --
+        on the fused path fused ragged dispatches (pure prefill, pure
+        decode, and mixed chunk + decode points at
+        ``CalibrationGrid.token_buckets``); on the split path bucketed
+        prefill groups and decode batches -- fits a ``MeasuredProfiler``
+        and installs it as the scheduler's latency model, so token budgets
+        come from measured time on this card instead of the analytical
+        prior.  Each probe is timed on the host clock around the dispatch
+        and a device synchronisation: the scheduler budgets wall time, and
+        the host's share of a step counts.  Probes address only the scratch
+        row, so calibration never perturbs live KV."""
+        if grid is None:
+            grid = self._default_grid()
+        if grid.pipeline_depth != 1:
+            raise NotImplementedError(
+                "pipelined calibration needs the async pipeline, not ported "
+                "yet (ROADMAP Queue 1 item 6)"
+            )
+        dev = self.device
+        max_ctx = self.ec.max_model_len
+        scratch = self._scratch_block
+
+        def run(fn) -> None:
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def timed(fn) -> float:
+            for _ in range(grid.warmup):
+                run(fn)
+            best = float("inf")
+            for _ in range(grid.repeats):
+                t0 = time.perf_counter()
+                run(fn)
+                best = min(best, time.perf_counter() - t0)
+            return best
+
+        fused_timer = None
+        if self.fused:
+            def probe(items) -> Callable[[], Any]:
+                toks, tables, positions, meta, li = self._fused_inputs(
+                    self._build_ragged(items)
+                )
+
+                def once():
+                    x = tf.embed(self.cfg, self.params, toks[None])
+                    for lo, pps in tf.segment_spans(self.cfg):
+                        x, _ = tf.run_tokens_paged_at(
+                            self.cfg, self.params, pps, lo, x, self.pools,
+                            tables, positions, meta,
+                        )
+                    return tf.ragged_lm_head(self.cfg, self.params, x, li)
+
+                return once
+
+            def prefill_timer(b: int, c: int) -> float:
+                b, c = pow2_bucket(b), self._chunk_bucket(min(c, max_ctx))
+                return timed(probe([(c, 0, None, None)] * b))
+
+            def decode_timer(b: int, ctx: int) -> float:
+                ctx = max(1, min(ctx, max_ctx - 1))
+                return timed(probe([(1, ctx, None, None)] * b))
+
+            def fused_timer(tok: int, kv: int):
+                c = min(self.sched.sc.chunk_size, max_ctx, tok)
+                # decode rows fill the token bucket, but never past the
+                # sequence count a real plan can hold
+                ndec = max(0, min(tok - c, self.sched.sc.max_batch_seqs - 1))
+                items = [(c, 0, None, None)] + [(1, kv, None, None)] * ndec
+                shape = BatchShape(
+                    prefill_tokens=c, prefill_attn_tokens=c * c / 2.0,
+                    prefill_ctx_end=c, decode_tokens=ndec,
+                    decode_ctx=ndec * kv, num_seqs=1 + ndec,
+                )
+                return shape, timed(probe(items))
+        else:
+            width = self._table_width
+
+            def prefill_timer(b: int, c: int) -> float:
+                b, c = pow2_bucket(b), self._chunk_bucket(c)
+                toks = self._put(np.zeros((b, c), np.int32))
+                tables = self._put(np.full((b, width), scratch, np.int32))
+                offs = self._put(np.zeros((b,), np.int32))
+                last = self._put(np.full((b,), c - 1, np.int32))
+                return timed(lambda: tf.prefill_chunk_paged(
+                    self.cfg, self.params, toks, self.pools, tables, offs, last))
+
+            def decode_timer(b: int, ctx: int) -> float:
+                last = self._put(np.zeros((b,), np.int32))
+                tables = self._put(np.full((b, width), scratch, np.int32))
+                lens = self._put(np.full((b,), min(ctx, max_ctx - 1), np.int32))
+                return timed(lambda: tf.decode_step_paged(
+                    self.cfg, self.params, last, self.pools, tables, lens))
+
+        def swap_timer(n: int):
+            nbytes = n * block_bytes(self.cfg, self.ec.block_size)
+            return nbytes, timed(lambda: self._extract_blocks_paged([scratch] * n))
+
+        prof = calibrate(prefill_timer, decode_timer, max_ctx, grid, swap_timer,
+                         fused_timer=fused_timer)
+        self.profile = prof
+        self.sched.model = prof
+        self.sched._sat_cache = None  # the saturation knee derives from the model
+        return prof
+
+    def _default_grid(self) -> CalibrationGrid:
+        """Every shape bucket serving can dispatch: chunk buckets 8..chunk
+        size, decode batch buckets up to ``max_batch_seqs``, prefill group
+        buckets up to ``max_prefill_batch``, and on the fused path mixed
+        points at the two token buckets past one chunk."""
+        top = self._chunk_bucket(min(self.sched.sc.chunk_size, self.ec.max_model_len))
+
+        def pow2s(hi):
+            out, v = [], 1
+            while v <= hi:
+                out.append(v)
+                v *= 2
+            return tuple(out)
+
+        chunks = tuple(c for c in pow2s(top) if c >= 8)
+        tok0 = pow2_bucket(top + 1)
+        return CalibrationGrid(
+            chunk_sizes=chunks,
+            prefill_batches=pow2s(pow2_bucket(max(1, self.ec.max_prefill_batch))),
+            decode_buckets=pow2s(pow2_bucket(self.sched.sc.max_batch_seqs)),
+            token_buckets=(tok0, 2 * tok0) if self.fused else (),
+        )
 
     def run(self, max_steps: Optional[int] = None) -> None:
         limit = max_steps or self.ec.max_steps

@@ -157,11 +157,112 @@ def test_ops_dispatch_by_device():
     args = [torch.from_numpy(a) for a in _ragged_inputs([2, 1], 4, 2, 64, 8, 3, seed=7)]
     want = tco.ragged_paged_attention_ref(*args)
     assert torch.equal(ops.ragged_paged_attention(*args), want)
-    assert ops.launch_counts() == {"ragged_paged_attention": 0, "checkpoint_gather": 0}
+    dec = [torch.from_numpy(a) for a in _decode_inputs(*DECODE_CASES[1], seed=8)]
+    assert torch.equal(ops.paged_attention(*dec, logit_softcap=30.0),
+                       tco.paged_attention_ref(*dec, logit_softcap=30.0))
+    assert ops.launch_counts() == {"ragged_paged_attention": 0, "paged_attention": 0,
+                                   "checkpoint_gather": 0}
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention.ragged_paged_attention(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention(*dec)
     with pytest.raises(ValueError, match="CUDA"):
         kv_checkpoint.checkpoint_gather(torch.zeros(1, 4, 16, 2, 64),
                                         torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="device"):
         ops.ragged_paged_attention(*[a.to("meta") for a in args])
+
+
+# ------------------------------------------------------- paged decode kernel
+DECODE_CASES = [
+    # b, h, hkv, d, page, m, seq_lens (0 = an empty row; multiples of page)
+    (4, 2, 2, 128, 16, 4, [37, 0, 32, 64]),  # G = 1 at the Llama head dim
+    (3, 14, 2, 64, 16, 3, [16, 5, 0]),  # G = 7 (Qwen2-0.5B's grouping)
+    (3, 4, 4, 64, 8, 5, [40, 9, 1]),  # G = 1, D = 64
+    (2, 14, 2, 128, 8, 4, [32, 17]),  # G = 7, D = 128
+]
+
+
+def _decode_inputs(b, h, hkv, d, page, m, seq_lens, seed):
+    """Decode batch with distinct pages per sequence; table entries past
+    each sequence's pages are -1."""
+    rng = np.random.default_rng(seed)
+    npages = b * m + 1
+    q = _rand((b, h, d), seed + 1)
+    kp, vp = _rand((npages, page, hkv, d), seed + 2), _rand((npages, page, hkv, d), seed + 3)
+    tables = rng.permutation(npages)[: b * m].reshape(b, m).astype(np.int32)
+    lens = np.asarray(seq_lens, np.int32)
+    tables[np.arange(m)[None, :] >= -(-lens[:, None] // page)] = -1
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_attention_ref_matches_pallas_and_oracle(case, softcap):
+    """The decode kernel's plain version against the Pallas kernel in
+    interpret mode (every row, an empty one included: both write 0) and
+    against the reference's jnp oracle (rows with seq_len > 0: for an empty
+    row the oracle's uniform softmax over masked keys gives the mean of the
+    gathered V, where the kernels give 0)."""
+    args = _decode_inputs(*case, seed=70)
+    lens = args[-1]
+    pallas = np.asarray(jax_paged(*map(jnp.asarray, args), logit_softcap=softcap,
+                                  interpret=True))
+    oracle = np.asarray(jco.paged_attention_ref(*map(jnp.asarray, args),
+                                                logit_softcap=softcap))
+    got = tco.paged_attention_ref(*map(torch.from_numpy, args), logit_softcap=softcap)
+    got = got.numpy()
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
+    live = lens > 0
+    np.testing.assert_allclose(got[live], oracle[live], atol=ATOL, rtol=0)
+    assert not got[~live].any()
+
+
+def test_paged_attention_ref_masks_a_negative_entry_inside_the_context():
+    """A -1 entry below seq_len (the engine never builds one) is masked: the
+    row attends to its other pages only, so it equals the same keys laid out
+    with the hole at the end."""
+    q, kp, vp, tables, _ = _decode_inputs(2, 4, 2, 64, 8, 3, [24, 24], seed=80)
+    holed = tables.copy()
+    holed[0] = [-1, tables[0, 1], tables[0, 2]]
+    packed = tables.copy()
+    packed[0] = [tables[0, 1], tables[0, 2], -1]
+    a = tco.paged_attention_ref(*map(torch.from_numpy, (q, kp, vp, holed, np.array([24, 24], np.int32))))
+    b = tco.paged_attention_ref(*map(torch.from_numpy, (q, kp, vp, packed, np.array([16, 24], np.int32))))
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
+
+
+def test_append_paged_matches_reference_and_drops():
+    """One token per sequence into its tail block, in place, bit for bit the
+    reference's functional scatter: a -1 entry and a position past the table
+    width drop the write."""
+    n, page, m = 8, 4, 3
+    k0, v0 = _rand((n, page, 2, 8), 11), _rand((n, page, 2, 8), 12)
+    kn, vn = _rand((5, 2, 8), 13), _rand((5, 2, 8), 14)
+    tables = np.array([[0, 1, 2], [3, -1, -1], [4, 5, 6], [7, -1, -1], [2, 2, 2]], np.int32)
+    lens = np.array([9, 5, 12, 3, 12], np.int32)  # row 1: -1 entry; rows 2, 4: past the width
+    jk, jv = jco.append_paged(*map(jnp.asarray, (k0, v0, kn, vn, tables, lens)))
+    tk, tv = torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy())
+    tco.append_paged(tk, tv, *map(torch.from_numpy, (kn, vn, tables, lens)))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert not np.array_equal(tk.numpy(), k0)  # rows 0 and 3 landed
+    # every write dropped: the pool is unchanged
+    tco.append_paged(tk, tv, *map(torch.from_numpy, (kn[1:2], vn[1:2], tables[1:2], lens[1:2])))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+
+
+def test_write_paged_chunk_matches_reference_and_drops():
+    """A padded prefill chunk per sequence, in place, bit for bit the
+    reference: positions on -1 entries or past the table width drop."""
+    n, page, m = 10, 4, 3
+    k0, v0 = _rand((n, page, 2, 8), 21), _rand((n, page, 2, 8), 22)
+    kn, vn = _rand((3, 6, 2, 8), 23), _rand((3, 6, 2, 8), 24)
+    tables = np.array([[0, 1, 2], [3, 4, -1], [5, 6, 7]], np.int32)
+    offs = np.array([0, 5, 9], np.int32)  # row 1 reaches a -1 entry, row 2 past the width
+    positions = (offs[:, None] + np.arange(6)[None, :]).astype(np.int32)
+    jk, jv = jco.write_paged_chunk(*map(jnp.asarray, (k0, v0, kn, vn, tables, positions)))
+    tk, tv = torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy())
+    tco.write_paged_chunk(tk, tv, *map(torch.from_numpy, (kn, vn, tables, positions)))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))

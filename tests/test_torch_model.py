@@ -214,3 +214,124 @@ def test_stochastic_sampling_distribution():
     freq = np.bincount(draws, minlength=5) / len(draws)
     assert freq[3] == 0 and freq[4] == 0  # outside the top 3
     np.testing.assert_allclose(freq[:3], want, atol=0.015)  # ~4 sigma at n=20000
+
+
+# --------------------------------------------------- split per-family paths
+N_BLOCKS, BS = 10, 16  # pool rows; the last is the scratch row
+SCRATCH = N_BLOCKS - 1
+# A padded prefill wave as the engine builds it: (offset, real length, table)
+# per row, chunks padded to L = 16.  Row 2 is a padded batch row (all scratch);
+# row 3 runs to the end of its table, so its padded positions fall past the
+# width and drop.
+PREFILL_ROWS = [(0, 5, [0, 1, SCRATCH, SCRATCH]), (16, 3, [2, 3, SCRATCH, SCRATCH]),
+                (0, 1, [SCRATCH] * 4), (56, 8, [4, 5, 6, 7])]
+# decode rows: (seq_len before the token, table); the last is a padded row
+DECODE_ROWS = [(20, [0, 1, SCRATCH, SCRATCH]), (47, [2, 3, 4, SCRATCH]),
+               (63, [5, 6, 7, 8]), (0, [SCRATCH] * 4)]
+
+
+def _prefill_batch(vocab, seed):
+    toks = np.random.default_rng(seed).integers(0, vocab, (len(PREFILL_ROWS), 16))
+    offs = np.array([o for o, _, _ in PREFILL_ROWS], np.int32)
+    last = np.array([n - 1 for _, n, _ in PREFILL_ROWS], np.int32)
+    tables = np.array([t for _, _, t in PREFILL_ROWS], np.int32)
+    return toks.astype(np.int32), tables, offs, last
+
+
+def _decode_batch(vocab, seed):
+    last = np.random.default_rng(seed).integers(0, vocab, len(DECODE_ROWS)).astype(np.int32)
+    tables = np.array([t for _, t in DECODE_ROWS], np.int32)
+    lens = np.array([n for n, _ in DECODE_ROWS], np.int32)
+    return last, tables, lens
+
+
+def _assert_pools_close(gpools, wpools, tol):
+    """Every pool row but the scratch one, which padded rows write in any
+    order on both sides."""
+    for pos in wpools:
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(gpools[pos][kv].numpy()[:, :SCRATCH],
+                                       np.asarray(wpools[pos][kv])[:, :SCRATCH], **tol)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_prefill_and_decode_attention_match_reference(arch):
+    """The split path's two attention layers: outputs of the real rows and
+    the pools after their scatters (drops included)."""
+    cfg, cfgt, params, tparams = _model(arch)
+    lp = jax.tree.map(lambda p: p[0], params["layers"]["0"]["mixer"])
+    tlp = jax.tree.map(lambda p: p[0], tparams["layers"]["0"]["mixer"])
+    pool = jax.tree.map(lambda x: x[0], _pools(cfg, N_BLOCKS, BS, 9)["0"])
+    rng = np.random.default_rng(10)
+    _, tables, offs, _ = _prefill_batch(cfg.vocab_size, 11)
+    positions = (offs[:, None] + np.arange(16)[None, :]).astype(np.int32)
+    x = rng.standard_normal((len(PREFILL_ROWS), 16, cfg.d_model)).astype(np.float32)
+    want, wpool = jl.paged_prefill_attention(
+        cfg, lp, jnp.asarray(x), jax.tree.map(jnp.asarray, pool), jnp.asarray(tables),
+        jnp.asarray(positions))
+    tpool = bridge.to_torch(pool)
+    got, gpool = tl.paged_prefill_attention(cfgt, tlp, _t(x), tpool, _t(tables), _t(positions))
+    assert gpool is tpool
+    for i, (_, n, _) in enumerate(PREFILL_ROWS):
+        if i != 2:  # the padded row reads the scratch row
+            np.testing.assert_allclose(got.numpy()[i, :n], np.asarray(want)[i, :n], **LAYER_TOL)
+    _assert_pools_close({"0": gpool}, {"0": wpool}, LAYER_TOL)
+
+    _, tables, lens = _decode_batch(cfg.vocab_size, 12)
+    x = rng.standard_normal((len(DECODE_ROWS), 1, cfg.d_model)).astype(np.float32)
+    want, wpool = jl.paged_decode_attention(
+        cfg, lp, jnp.asarray(x), wpool, jnp.asarray(tables), jnp.asarray(lens[:, None]))
+    got, gpool = tl.paged_decode_attention(cfgt, tlp, _t(x), gpool, _t(tables), _t(lens[:, None]))
+    np.testing.assert_allclose(got.numpy()[:3], np.asarray(want)[:3], **LAYER_TOL)
+    _assert_pools_close({"0": gpool}, {"0": wpool}, LAYER_TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_split_entry_points_match_reference(arch):
+    """``prefill_chunk_paged`` (padded chunks, ``last_index``), then
+    ``decode_step_paged`` and its segmented form ``run_segment_paged_at``
+    on the pools it left: logits of the real rows and the pools."""
+    cfg, cfgt, params, tparams = _model(arch)
+    pools = _pools(cfg, N_BLOCKS, BS, 13)
+    toks, tables, offs, last = _prefill_batch(cfg.vocab_size, 14)
+    want, wpools = jtf.prefill_chunk_paged(
+        cfg, params, jnp.asarray(toks), jax.tree.map(jnp.asarray, pools),
+        jnp.asarray(tables), jnp.asarray(offs), last_index=jnp.asarray(last))
+    tpools = bridge.to_torch(pools)
+    got, gpools = ttf.prefill_chunk_paged(cfgt, tparams, _t(toks), tpools, _t(tables),
+                                          _t(offs), _t(last))
+    assert gpools is tpools and got.dtype == torch.float32
+    real = [0, 1, 3]
+    np.testing.assert_allclose(got.numpy()[real], np.asarray(want)[real], **MODEL_TOL)
+    _assert_pools_close(gpools, wpools, MODEL_TOL)
+
+    dlast, dtables, lens = _decode_batch(cfg.vocab_size, 15)
+    seg_pools, wseg = bridge.to_torch(bridge.to_numpy(gpools)), wpools
+    want, wpools = jtf.decode_step_paged(cfg, params, jnp.asarray(dlast), wpools,
+                                         jnp.asarray(dtables), jnp.asarray(lens))
+    got, gpools = ttf.decode_step_paged(cfgt, tparams, _t(dlast), gpools, _t(dtables), _t(lens))
+    np.testing.assert_allclose(got.numpy()[:3], np.asarray(want)[:3], **MODEL_TOL)
+    _assert_pools_close(gpools, wpools, MODEL_TOL)
+
+    # the segmented decode, segment by segment on both sides
+    wx = jtf.embed(cfg, params, jnp.asarray(dlast)[:, None])
+    x = ttf.embed(cfgt, tparams, _t(dlast)[:, None])
+    assert ttf.segment_spans(cfgt) == jtf.segment_spans(cfg)
+    for lo, pps in ttf.segment_spans(cfgt):
+        wx, wseg = jtf.run_segment_paged_at(cfg, params, pps, jnp.int32(lo), wx, wseg,
+                                            jnp.asarray(dtables), jnp.asarray(lens[:, None]))
+        x, _ = ttf.run_segment_paged_at(cfgt, tparams, pps, lo, x, seg_pools, _t(dtables),
+                                        _t(lens)[:, None])
+        np.testing.assert_allclose(x.numpy()[:3], np.asarray(wx)[:3], **MODEL_TOL)
+    _assert_pools_close(seg_pools, wseg, MODEL_TOL)
+    # addressed by segment index, the same segments give the same result
+    x2 = ttf.embed(cfgt, tparams, _t(dlast)[:, None])
+    for seg in range(ttf.num_segments(cfgt)):
+        x2, _ = ttf.run_segment_paged(cfgt, tparams, seg, x2, seg_pools, _t(dtables),
+                                      _t(lens)[:, None])
+    assert torch.equal(x2, x)
+    np.testing.assert_allclose(ttf.lm_head(cfgt, tparams, x)[:3, 0].numpy(),
+                               np.asarray(want)[:3], **MODEL_TOL)
+    with pytest.raises(ValueError, match="mode"):
+        ttf.run_periods(cfgt, tparams["layers"], 0, 1, x, seg_pools, _t(dtables),
+                        _t(lens)[:, None], mode="full")
