@@ -22,20 +22,31 @@ any failure exits non-zero before the result lines:
    (``--no-fused-batch``): prefill chunks batched, decodes through the
    paged decode attention kernel, counted and profiled the same way; its
    prefill and decode dispatches must not synchronise with the host.
+3c. The same workload on the contiguous path (``--backend contiguous``):
+   per-request caches, every prefill chunk's attention through the flash
+   attention kernel in every layer, decodes through the plain masked
+   attention over the batched caches, preemption by swap or discard and
+   resume into a fresh cache; counted and profiled the same way, and its
+   dispatches must not synchronise with the host either.
 4. Self-consistency of the port, at fp32 (same width and depth): greedy
    tokens of a preempted fused run equal those of an uninterrupted run, of
    a run with the prefix cache off and of a preempted split run, up to the
-   first near-tie (a top-2 logit margin below MARGIN_BOUND).  bf16 logits
-   tie exactly too often for a token comparison to say much.
+   first near-tie (a top-2 logit margin below MARGIN_BOUND), and those of
+   a preempted contiguous run for every request.  bf16 logits tie exactly
+   too often for a token comparison to say much.
+4b. ``forward_full`` at full width and fp32 on one 2048-token sequence:
+   the last position's logits with the flash kernel in every layer against
+   the same forward with the kernel's plain version, within FULL_TOL.
 5. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches,
    error against the plain version, time, plain time, bound and library
    time, measured on the heaviest call of its path (captured while it ran;
    the kernel must agree with its plain version there), and for attention
-   the same at contexts of 2-4 thousand tokens (``long_context``).
+   the same at contexts of 2-4 thousand tokens (``long_context``; for
+   flash attention ``forward_full``'s 2048 and 4096 tokens).
 6. Calibration: ``RealEngine.calibrate()`` on a bf16 engine of each path
    (``--calibrate``), the fitted profile, and phase 3's workload served on
    each calibrated engine: measured against predicted seconds per
-   iteration, beside the same figures of the uncalibrated runs of 3 and 3b.
+   iteration, beside the same figures of the uncalibrated runs of 3-3c.
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -62,6 +73,10 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=2**-6, rtol=
 MARGIN_BOUND = 1e-3
 # tokens each request of the served workload generates
 MAX_NEW = 48
+# forward_full at full width, flash kernel vs its plain version at fp32: the
+# attention outputs differ by a few 1e-7 (sums in another order), which 32
+# layers carry to the logits (|logits| <= ~5) as differences near 1e-5.
+FULL_TOL = dict(atol=1e-3, rtol=1e-3)
 # FP32 outside the tensor cores and dense bf16 (NVIDIA H100 data sheet).
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
@@ -158,8 +173,54 @@ def decode_case(torch, dtype, h, hkv, d, softcap, seed,
     return q, kp, vp, tables, lens, float(softcap)
 
 
-def check_kernels(torch, ops, rpa, cg):
+# flash_attention cases of phase 2: (name, B, Tq, Tk, causal, window, q_offset).
+# K/V are prefix views of a longer cache (batch stride > Tk rows), as the
+# contiguous path's prefill chunks pass them.
+FLASH_CASES = [
+    ("chunk behind a cached prefix", 2, 96, 224, True, 0, 128),
+    ("sliding window", 1, 200, 200, True, 48, 0),
+    ("non-causal", 2, 80, 144, False, 0, 0),
+    ("Tq/Tk off the tile size", 1, 130, 300, True, 0, 170),
+    ("Tq = 1", 2, 1, 300, True, 0, 299),
+    ("rows that keep no key", 1, 8, 64, False, 16, 100),
+]
+
+
+def flash_case(torch, dtype, h, hkv, d, b, tq, tk, seed, spare=40):
+    """q (B, Tq, H, D) and k, v as the first Tk slots of (B, Tk + spare,
+    Hkv, D) caches."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
+    kc = torch.randn((b, tk + spare, hkv, d), generator=g, device="cuda").to(dtype)
+    vc = torch.randn((b, tk + spare, hkv, d), generator=g, device="cuda").to(dtype)
+    return q, kc[:, :tk], vc[:, :tk]
+
+
+def check_flash(torch, fa):
+    """Phase 2, flash_attention: every FLASH_CASES entry at softcap 0 and 30,
+    fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B shapes."""
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
+            for case, b, tq, tk, causal, window, off in FLASH_CASES:
+                for cap in (0.0, 30.0):
+                    q, k, v = flash_case(torch, dtype, h, hkv, d, b, tq, tk, 5)
+                    kw = dict(causal=causal, sliding_window=window, q_offset=off,
+                              logit_softcap=cap)
+                    got = fa.flash_attention(q, k, v, **kw)
+                    want = fa.flash_attention_ref(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    log(f"  flash_attention {dname} {arch} H={h} Hkv={hkv} D={d} {case} "
+                        f"(B={b} Tq={tq} Tk={tk} causal={causal} window={window} "
+                        f"q_offset={off}) softcap={cap:g}: max_abs_err={err:.3e} "
+                        f"(tolerance {TOL[dname]})")
+                    if not torch.allclose(got.float(), want.float(), **TOL[dname]):
+                        raise AssertionError(f"flash_attention disagrees ({dname}, {arch}, {case})")
+
+
+def check_kernels(torch, ops, rpa, cg, fa):
     """Phase 2: every kernel against its plain version, fp32 and bf16."""
+    check_flash(torch, fa)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
             for cap in (0.0, 30.0):
@@ -303,6 +364,7 @@ def compare_runs(name, a, b):
             f"(margin {low:.3e} < {MARGIN_BOUND})")
     log(f"  {name}: {identical} identical, {near_tie} diverged after a near-tie; "
         f"largest margin change on agreeing tokens {drift:.3e}")
+    return identical
 
 
 # phase 3's workload: Llama-2-7B at full width, 8 offline jobs, then 4 online
@@ -322,10 +384,21 @@ def iteration_figures(eng) -> str:
             f"iteration by the {model}")
 
 
+def path_of(eng) -> str:
+    return "fused" if eng.fused else "split" if eng.paged else "contiguous"
+
+
+def flash_clone(q, k, v, **kw):
+    return (q.clone(), k.clone(), v.clone(),
+            dict(dict(causal=True, sliding_window=0, q_offset=0, logit_softcap=0.0), **kw))
+
+
 def run_serve(torch, ops, serve_mod, tf, argv):
-    """Phases 3 and 3b: one serve run at full width, every kernel captured
-    and counted (counts zeroed just before, read just after)."""
+    """Phases 3-3c: one serve run at full width, every kernel captured and
+    counted (counts zeroed just before, read just after)."""
     caps = {
+        "flash_attention": Capture(
+            ops.flash_attention, lambda q, k, v: q.shape[1] * k.shape[1], flash_clone),
         "ragged_paged_attention": Capture(
             ops.ragged_paged_attention, PagesRead(),
             lambda q, kp, vp, tb, qp, kvl, logit_softcap=0.0: (
@@ -352,7 +425,7 @@ def run_serve(torch, ops, serve_mod, tf, argv):
     aborts = eng.safepoints.stats.preemptions
     log(f"  {cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} heads={cfg.num_heads}"
         f"/{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab_size} dtype=bfloat16, {'fused' if eng.fused else 'split'} path")
+        f"vocab={cfg.vocab_size} dtype=bfloat16, {path_of(eng)} path")
     log(f"  steps={eng.steps} safepoint_aborts={aborts} preemptions={res['preemptions']} "
         f"ckpt_blocks={eng.ckpt.stats.blocks_checkpointed} ckpt_gather_rounds={eng.ckpt_gathers} "
         f"restored_blocks={eng.restored_blocks} cow_rounds={eng.cow_dispatches} "
@@ -367,7 +440,16 @@ def run_serve(torch, ops, serve_mod, tf, argv):
         raise AssertionError(f"requests without all their tokens: {short}")
     per_segment = cfg.num_layers // len(tf.segment_spans(cfg))
     d = eng.dispatches
-    if eng.fused:
+    if eng.paged and counts["flash_attention"] != 0:
+        raise AssertionError("a paged path launched the flash attention kernel")
+    if not eng.paged:
+        if counts["flash_attention"] != cfg.num_layers * d["prefill"] or d["prefill"] == 0:
+            raise AssertionError("flash_attention launches != 32 x contiguous prefill dispatches")
+        if counts["ragged_paged_attention"] or counts["paged_attention"]:
+            raise AssertionError("the contiguous path launched a paged attention kernel")
+        if d["decode"] + d["segment"] == 0:
+            raise AssertionError("the contiguous path ran no decode dispatch")
+    elif eng.fused:
         if counts["ragged_paged_attention"] != per_segment * d["fused_segment"]:
             raise AssertionError("ragged_paged_attention launches != layers of the segments run")
         if counts["ragged_paged_attention"] < cfg.num_layers * (eng.steps - aborts):
@@ -382,35 +464,73 @@ def run_serve(torch, ops, serve_mod, tf, argv):
             raise AssertionError("the split path ran no decode or no prefill dispatch")
         if counts["ragged_paged_attention"] != 0:
             raise AssertionError("the split path launched the ragged kernel")
-    if res["preemptions"] == 0 or counts["checkpoint_gather"] == 0 or eng.restored_blocks == 0:
+    ckpt = counts["checkpoint_gather"] if eng.paged else eng.ckpt.stats.blocks_checkpointed
+    if res["preemptions"] == 0 or ckpt == 0 or eng.restored_blocks == 0:
         raise AssertionError("the run did not preempt, checkpoint and restore")
     return res, counts, {name: cap.args for name, cap in caps.items()}
 
 
-def check_split_reads_nothing_back(torch, tf, eng):
-    """The split path's dispatches read nothing back to the host: one
-    ``prefill_chunk_paged`` and one ``decode_step_paged`` on the served
-    engine's pools, every row on the scratch block, under
-    ``torch.cuda.set_sync_debug_mode("error")`` (a synchronising call
-    raises)."""
+def check_reads_nothing_back(torch, tf, eng):
+    """The split and contiguous paths' dispatches read nothing back to the
+    host, under ``torch.cuda.set_sync_debug_mode("error")`` (a synchronising
+    call raises).  Split: one ``prefill_chunk_paged`` and one
+    ``decode_step_paged`` on the served engine's pools, every row on the
+    scratch block.  Contiguous: two ``prefill_chunk`` dispatches (the second
+    behind the first, so the flash kernel reads a cached prefix) and one
+    ``decode_step`` on a fresh cache."""
     import numpy as np
 
     b, scratch = 8, eng._scratch_block
     toks = eng._put(np.zeros((b, 32), np.int32))
-    tables = eng._put(np.full((b, eng._table_width), scratch, np.int32))
-    offs = eng._put(np.zeros((b,), np.int32))
     last = eng._put(np.full((b,), 31, np.int32))
     lens = eng._put(np.full((b,), 100, np.int32))
+    if eng.paged:
+        tables = eng._put(np.full((b, eng._table_width), scratch, np.int32))
+        offs = eng._put(np.zeros((b,), np.int32))
+    else:
+        caches = tf.init_caches(eng.cfg, b, eng.ec.max_model_len, eng.dtype, eng.device)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        tf.prefill_chunk_paged(eng.cfg, eng.params, toks, eng.pools, tables, offs, last)
-        tf.decode_step_paged(eng.cfg, eng.params, offs, eng.pools, tables, lens)
+        if eng.paged:
+            tf.prefill_chunk_paged(eng.cfg, eng.params, toks, eng.pools, tables, offs, last)
+            tf.decode_step_paged(eng.cfg, eng.params, offs, eng.pools, tables, lens)
+        else:
+            tf.prefill_chunk(eng.cfg, eng.params, toks, caches, [0] * b)
+            tf.prefill_chunk(eng.cfg, eng.params, toks, caches, [32] * b)
+            tf.decode_step(eng.cfg, eng.params, last, caches, lens)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("  split prefill and decode dispatches ran under sync debug mode 'error': "
+    log(f"  {path_of(eng)} prefill and decode dispatches ran under sync debug mode 'error': "
         "no host read-back")
+
+
+def time_decode_stacking(torch, eng, n: int = 12):
+    """Host-clock time of the contiguous decode's batching: concatenating
+    ``n`` requests' B=1 caches (every leaf) into one batch, as
+    ``RealEngine._decode_contiguous`` does each decode step."""
+    caches = [eng._fresh_cache(None) for _ in range(n)]
+    first = caches[0]
+
+    def stack():
+        return {pos: {name: torch.cat([c[pos][name] for c in caches], dim=1)
+                      for name in first[pos]} for pos in first}
+
+    stack()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        out = stack()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    nbytes = 2 * sum(leaf.numel() * leaf.element_size()
+                     for c in out.values() for leaf in c.values())
+    log(f"  stacking {n} caches of max_model_len {eng.ec.max_model_len} for one decode step "
+        f"(torch.cat, every leaf): {ms:.3f} ms for {nbytes / 1e6:.1f} MB read and written "
+        f"= {nbytes / ms / 1e9:.2f} TB/s")
+    del caches, out
 
 
 def profile_steps(torch, eng, steps: int = 6):
@@ -540,7 +660,141 @@ def long_context_entries(torch, rpa, spec, timer):
     return ragged, decode
 
 
-def kernel_line(torch, rpa, cg, counts, split_counts, args, split_args, spec, timer):
+def flash_keep(torch, tq, tk, causal, window, q_offset):
+    """The (Tq, Tk) mask of kept (query, key) pairs, on the CPU."""
+    qp = q_offset + torch.arange(tq)[:, None]
+    kp = torch.arange(tk)[None, :]
+    keep = torch.ones((tq, tk), dtype=torch.bool)
+    if causal:
+        keep &= kp <= qp
+    if window:
+        keep &= kp > qp - window
+    return keep
+
+
+def flash_bound(torch, q, k, kw, peak_flops, hbm_bw):
+    """The least time of one flash attention call on these inputs: 4 * D
+    flops per kept (query head, query, key) triple over the peak rate, or
+    the bytes over the HBM rate -- q read, the K/V rows some query keeps
+    read once, the output written -- whichever is larger."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    keep = flash_keep(torch, tq, tk, kw["causal"], kw["sliding_window"], kw["q_offset"])
+    pairs = int(keep.sum())
+    keys = int(keep.any(dim=0).sum())
+    elt = q.element_size()
+    nbytes = 2 * b * tq * h * d * elt + 2 * b * keys * hkv * d * elt
+    flops = 4 * d * h * b * pairs
+    t_b, t_f = nbytes / hbm_bw * 1e3, flops / peak_flops * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), pairs
+
+
+def sdpa_call(torch, q, k, v, kw):
+    """One ``scaled_dot_product_attention`` call computing the same function
+    on the same inputs (the yardstick; the port never calls it), or None
+    where it has no counterpart (a softcap)."""
+    if kw["logit_softcap"]:
+        return None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    extra = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+    tq, tk = q.shape[1], k.shape[1]
+    if kw["causal"] and not kw["q_offset"] and not kw["sliding_window"] and tq == tk:
+        return lambda: sdpa(qt, kt, vt, is_causal=True, **extra)
+    mask = flash_keep(torch, tq, tk, kw["causal"], kw["sliding_window"],
+                      kw["q_offset"]).to(q.device)
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, **extra)
+
+
+def flash_entry(torch, fa, args, spec, timer):
+    """Time, plain time, SDPA time and bound of one flash attention call;
+    raises if the kernel disagrees with its plain version on these inputs."""
+    q, k, v, kw = args
+    dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL[dname]):
+        raise AssertionError(f"flash_attention disagrees at q{tuple(q.shape)} k{tuple(k.shape)} "
+                             f"{kw}: max_abs_err={err:.3e}")
+    del got, want
+    bound, by, pairs = flash_bound(torch, q, k, kw, PEAK_FLOPS[dname], spec.hbm_bw)
+    lib = sdpa_call(torch, q, k, v, kw)
+    return {
+        "max_abs_err": err,
+        "ms": timer.ms(lambda: fa.flash_attention(q, k, v, **kw)),
+        "plain_ms": timer.ms(lambda: fa.flash_attention_ref(q, k, v, **kw), reps=5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": None if lib is None else timer.ms(lib),
+        "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": dname,
+                  "kept_pairs_per_head": pairs, **kw},
+    }
+
+
+def flash_long_entries(torch, fa, spec, timer):
+    """The flash kernel at forward_full's shapes: one Llama-2-7B sequence
+    of 2048 and of 4096 tokens, causal, bf16."""
+    out = []
+    for t in (2048, 4096):
+        q, k, v = flash_case(torch, torch.bfloat16, 32, 32, 128, 1, t, t, 6, spare=0)
+        kw = dict(causal=True, sliding_window=0, q_offset=0, logit_softcap=0.0)
+        entry = {"case": f"forward_full T={t}", **flash_entry(torch, fa, (q, k, v, kw),
+                                                               spec, timer)}
+        log(f"  flash_attention, forward_full T={t}: {entry}")
+        out.append(entry)
+        del q, k, v
+    return out
+
+
+def forward_full_check(torch, ops, fa, tf, t: int = 2048):
+    """Phase 4b: ``forward_full`` of Llama-2-7B at full width, fp32 weights
+    from a seed, on one ``t``-token sequence: flash kernel launches counted
+    (zeroed just before, read just after), then the same forward with the
+    kernel's plain version; the last position's logits must agree within
+    FULL_TOL."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama-2-7b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(cfg, gen, dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, _, _ = tf.forward_full(cfg, params, toks)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = ops.launch_counts()["flash_attention"]
+    got = logits[0, -1].clone()
+    del logits
+    kernel = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, **kw: fa.flash_attention_ref(q, k, v, **kw)
+    try:
+        t0 = time.perf_counter()
+        logits, _, _ = tf.forward_full(cfg, params, toks)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = kernel
+    want = logits[0, -1]
+    err = (got - want).abs().max().item()
+    log(f"  forward_full (1, {t}) fp32: flash_attention launches={launches}; last-position "
+        f"logits kernel vs plain max_abs_err={err:.3e} (|logits| max "
+        f"{want.abs().max().item():.3f}; tolerance {FULL_TOL}); argmax "
+        f"{int(got.argmax())} vs {int(want.argmax())}; {kernel_s * 1e3:.1f} ms vs "
+        f"{plain_s * 1e3:.1f} ms (host clock, first call)")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"forward_full launched flash_attention {launches} times, "
+                             f"not once per layer ({cfg.num_layers})")
+    if not torch.isfinite(got).all() or not torch.allclose(got, want, **FULL_TOL):
+        raise AssertionError("forward_full: kernel path disagrees with the plain path")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, full_launches,
+                args, split_args, contiguous_args, spec, timer):
     main = attention_entry(torch, rpa, args["ragged_paged_attention"], spec, timer)
     log(f"  ragged_paged_attention, heaviest main-path call: {main}")
     dmain = decode_entry(torch, rpa, split_args["paged_attention"], spec, timer)
@@ -560,6 +814,17 @@ def kernel_line(torch, rpa, cg, counts, split_counts, args, split_args, spec, ti
         "launches": split_counts["paged_attention"], **dmain,
         "library_ms": None, "shape": dshape, "long_context": long_decode,
     }]
+    fmain = flash_entry(torch, fa, contiguous_args["flash_attention"], spec, timer)
+    log(f"  flash_attention, heaviest contiguous-path call: {fmain}")
+    fshape = fmain.pop("shape")
+    out.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:107",
+        "launches": contiguous_counts["flash_attention"],
+        "launches_forward_full": full_launches, **fmain, "shape": fshape,
+        "long_context": flash_long_entries(torch, fa, spec, timer),
+    })
     pool, ids = args["checkpoint_gather"]
     got = cg.checkpoint_gather(pool, ids)
     want = cg.checkpoint_gather_ref(pool, ids)
@@ -588,7 +853,8 @@ def calibrated_serves(torch, serve_mod, uncalibrated):
     iteration beside the uncalibrated runs' figures."""
     names = ("c0 (s)", "prefill token", "prefill attention token", "decode token",
              "decode context token")
-    for path, extra in (("fused", []), ("split", ["--no-fused-batch"])):
+    for path, extra in (("fused", []), ("split", ["--no-fused-batch"]),
+                        ("contiguous", ["--backend", "contiguous"])):
         t0 = time.perf_counter()
         res = serve(serve_mod, SERVE_ARGV + extra + ["--calibrate"])
         eng = res["engine"]
@@ -597,12 +863,14 @@ def calibrated_serves(torch, serve_mod, uncalibrated):
             raise AssertionError(f"{path}: calibrate() installed no measured profile")
         coef = ", ".join(f"{n} {c:.4g}" for n, c in zip(names, prof._coef))
         log(f"  {path}: {len(prof.samples)} probes + {len(prof.swap_samples)} swap probes; "
-            f"profile s/iteration = {coef}; swap {prof._swap_coef.tolist()}; "
+            f"profile s/iteration = {coef}; swap "
+            f"{None if prof._swap_coef is None else prof._swap_coef.tolist()}; "
             f"calibration and serving took {time.perf_counter() - t0:.1f} s")
         reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
         if any(len(r.output_tokens) != MAX_NEW for r in reqs):
             raise AssertionError(f"{path}: a request lacks tokens after calibration")
-        log(f"  {path} uncalibrated (phase 3{'b' if extra else ''}): {uncalibrated[path]}")
+        phase = {"fused": "3", "split": "3b", "contiguous": "3c"}[path]
+        log(f"  {path} uncalibrated (phase {phase}): {uncalibrated[path]}")
         log(f"  {path} calibrated: {iteration_figures(eng)}")
         del res, eng
         torch.cuda.empty_cache()
@@ -623,7 +891,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.profiler import h100_spec
-    from repro_torch.kernels import build, kv_checkpoint as cg, ops, paged_attention as rpa
+    from repro_torch.kernels import build, flash_attention as fa, kv_checkpoint as cg, ops
+    from repro_torch.kernels import paged_attention as rpa
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import transformer as tf
 
@@ -644,11 +913,13 @@ def main() -> int:
                 log(f"    {name}: {line.strip()}")
 
     log("[2] kernels vs their plain versions on the card")
-    check_kernels(torch, ops, rpa, cg)
+    check_kernels(torch, ops, rpa, cg, fa)
     spec = h100_spec(torch.cuda.get_device_name(0))
     if kernels_only:
         log("[5] attention kernels at 2-4 thousand-token contexts")
-        long_context_entries(torch, rpa, spec, Timer(torch))
+        timer = Timer(torch)
+        long_context_entries(torch, rpa, spec, timer)
+        flash_long_entries(torch, fa, spec, timer)
         log(f"  card: {smi}; total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -663,19 +934,30 @@ def main() -> int:
     res, split_counts, split_args = run_serve(torch, ops, serve_mod, tf,
                                               SERVE_ARGV + ["--no-fused-batch"])
     uncalibrated["split"] = iteration_figures(res["engine"])
-    check_split_reads_nothing_back(torch, tf, res["engine"])
+    check_reads_nothing_back(torch, tf, res["engine"])
     profile_steps(torch, res["engine"])
     del res
     torch.cuda.empty_cache()
 
+    log("[3c] the same workload on the contiguous path (--backend contiguous)")
+    res, contiguous_counts, contiguous_args = run_serve(
+        torch, ops, serve_mod, tf, SERVE_ARGV + ["--backend", "contiguous"])
+    uncalibrated["contiguous"] = iteration_figures(res["engine"])
+    check_reads_nothing_back(torch, tf, res["engine"])
+    profile_steps(torch, res["engine"])
+    time_decode_stacking(torch, res["engine"])
+    del res
+    torch.cuda.empty_cache()
+
     log("[4] self-consistency at fp32: preempted vs uninterrupted vs prefix cache off "
-        "vs split path")
+        "vs split path vs contiguous path")
     argv32 = [a if a != "bfloat16" else "float32" for a in SERVE_ARGV]
     runs = {}
     for name, extra in (("preempted", []),
                         ("uninterrupted", ["--num-device-blocks", "512"]),
                         ("prefix cache off", ["--no-prefix-cache"]),
-                        ("split preempted", ["--no-fused-batch"])):
+                        ("split preempted", ["--no-fused-batch"]),
+                        ("contiguous preempted", ["--backend", "contiguous"])):
         res = serve(serve_mod, argv32 + extra)
         log(f"  {name}: preemptions={res['preemptions']} steps={res['engine'].steps} "
             f"{res['generated'] / res['seconds']:.1f} tok/s")
@@ -683,19 +965,28 @@ def main() -> int:
         del res
         torch.cuda.empty_cache()
     if (runs["preempted"][0] == 0 or runs["split preempted"][0] == 0
-            or runs["uninterrupted"][0] != 0):
+            or runs["contiguous preempted"][0] == 0 or runs["uninterrupted"][0] != 0):
         raise AssertionError("phase 4 did not contrast preempted and uninterrupted runs")
     compare_runs("preempted vs uninterrupted", runs["preempted"][1], runs["uninterrupted"][1])
     compare_runs("prefix cache on vs off", runs["preempted"][1], runs["prefix cache off"][1])
     compare_runs("split vs fused, preempted", runs["split preempted"][1], runs["preempted"][1])
+    same = compare_runs("contiguous vs fused, preempted", runs["contiguous preempted"][1],
+                        runs["preempted"][1])
+    if same != len(runs["preempted"][1]):
+        raise AssertionError(f"contiguous vs fused: {same} of {len(runs['preempted'][1])} "
+                             "requests identical")
+    del runs
+
+    log("[4b] forward_full at full width, fp32: flash kernel vs its plain version")
+    full_launches = forward_full_check(torch, ops, fa, tf)
 
     log("[5] kernels at their paths' captured inputs")
-    line = kernel_line(torch, rpa, cg, counts, split_counts, args, split_args, spec,
-                       Timer(torch))
-    del args, split_args
+    line = kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts,
+                       full_launches, args, split_args, contiguous_args, spec, Timer(torch))
+    del args, split_args, contiguous_args
     torch.cuda.empty_cache()
 
-    log("[6] calibration of both paths, then phase 3's workload on each")
+    log("[6] calibration of the three paths, then phase 3's workload on each")
     calibrated_serves(torch, serve_mod, uncalibrated)
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,13 @@
-"""Turn the JAX package's parameters and paged pools into the port's tensors.
+"""Turn the JAX package's parameters, paged pools and contiguous caches
+into the port's tensors, and back.
 
 The input is the reference pytree as plain numpy arrays (for example
 ``jax.tree.map(np.asarray, tf.init_params(cfg, PRNGKey(0)))``), so this
 module never imports JAX: nested dicts map to nested dicts, each array to
 a tensor on ``device``, and the period-major stacking is kept as it is.
-Tests use it so both packages compute with the same weights, with nothing
-downloaded.
+A contiguous cache tree (``{pos: {"k", "v", "pos"}}``) keeps its int32
+slot positions as int32.  Tests use it so both packages compute with the
+same weights and caches, with nothing downloaded, and compare the results.
 """
 from __future__ import annotations
 

@@ -26,7 +26,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("ragged_paged_attention", "paged_attention", "checkpoint_gather")
+SOURCES = ("ragged_paged_attention", "paged_attention", "checkpoint_gather",
+           "flash_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # what ptxas said about each kernel (registers, shared memory, spills)

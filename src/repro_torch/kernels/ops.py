@@ -13,16 +13,19 @@ from ..kvcache.cache_ops import (
     paged_attention_ref,
     ragged_paged_attention_ref,
 )
+from . import flash_attention as _flash
 from . import kv_checkpoint
 from . import paged_attention as _attention
+from .ref import flash_attention_ref
 
 __all__ = ["ragged_paged_attention", "paged_attention", "checkpoint_gather",
-           "reset_launch_counts", "launch_counts"]
+           "flash_attention", "reset_launch_counts", "launch_counts"]
 
 KERNELS = {
     "ragged_paged_attention": _attention.ragged_paged_attention,
     "paged_attention": _attention.paged_attention,
     "checkpoint_gather": kv_checkpoint.checkpoint_gather,
+    "flash_attention": _flash.flash_attention,
 }
 
 
@@ -69,6 +72,16 @@ def checkpoint_gather(pool, block_ids, *, out=None):
     if out is None:
         return staged
     return out.copy_(staged)
+
+
+def flash_attention(q, k, v, *, causal=True, sliding_window=0, q_offset=0,
+                    logit_softcap=0.0):
+    """Attention of q (B, Tq, H, D) at positions ``q_offset + t`` over
+    contiguous k/v (B, Tk, Hkv, D): the full-sequence attention of
+    ``forward_full`` and the contiguous path's prefill chunks."""
+    fn = _flash.flash_attention if _device_type(q) == "cuda" else flash_attention_ref
+    return fn(q, k, v, causal=causal, sliding_window=sliding_window,
+              q_offset=q_offset, logit_softcap=logit_softcap)
 
 
 def launch_counts() -> dict:

@@ -6,13 +6,17 @@ offline batch job, and runs the engine until both are done.  Weights are
 random, drawn from ``--seed``.  Without ``--full`` the config is the
 ``.reduced()`` smoke variant; with it, the published width and depth.
 ``--no-fused-batch`` serves through the split per-family dispatches instead
-of the fused ragged batch; ``--calibrate`` measures the engine's dispatches
-on the device and installs the fitted latency model before serving.
+of the fused ragged batch; ``--backend contiguous`` serves from contiguous
+per-request caches instead of the paged pool (its prefill chunks run the
+flash attention kernel); ``--calibrate`` measures the engine's dispatches on
+the device and installs the fitted latency model before serving.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full \
       --no-fused-batch --calibrate
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full \
+      --backend contiguous
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
       --device cpu --dtype float32 --online 2 --offline 4 --max-new 8
 """
@@ -47,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-fused-batch", action="store_true",
                     help="the split prefill / decode dispatches "
                          "(RealEngineConfig(fused_batch=False))")
+    ap.add_argument("--backend", choices=["auto", "paged", "contiguous"], default="auto",
+                    help="KV layout: the paged pool ('auto' and 'paged' here) or "
+                         "contiguous per-request caches")
     ap.add_argument("--calibrate", action="store_true",
                     help="calibrate the latency model on the device first")
     ap.add_argument("--seed", type=int, default=0)
@@ -77,6 +84,7 @@ def run_real(args, *, record_margins: bool = False) -> dict:
             num_device_blocks=args.num_device_blocks,
             prefix_cache=not args.no_prefix_cache,
             fused_batch=not args.no_fused_batch,
+            backend=args.backend,
         ),
         device=device,
     )
@@ -118,7 +126,7 @@ def main(argv=None) -> None:
     res = run_real(args)
     eng, cfg = res["engine"], res["cfg"]
     width = "full" if args.full else "reduced"
-    path = "fused" if eng.fused else "split"
+    path = "fused" if eng.fused else "split" if eng.paged else "contiguous"
     print(f"arch={cfg.name} ({width}, {args.dtype}, {path} path) on {eng.device}")
     for i, h in enumerate(res["streams"]):
         print(f"stream {i}: {h.poll()}")

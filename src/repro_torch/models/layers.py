@@ -1,15 +1,16 @@
-"""Layers of the paged serving paths, in PyTorch.
+"""Layers of the serving paths and of ``forward_full``, in PyTorch.
 
 Counterparts of ``src/repro/models/layers.py``: rmsnorm, split-half RoPE,
-the QKV / output projections, the MLP, the fused ragged paged attention,
-and the split path's paged prefill and decode attention.
+the QKV / output projections, the MLP, the full-sequence attention, the
+contiguous KV cache and its cached attention, the fused ragged paged
+attention, and the split path's paged prefill and decode attention.
 Layouts are the reference's, so tests compare like with like:
 activations (B, T, d_model), projections ``wq (d, H, hd)``, ``wo (H, hd, d)``,
-paged pools (num_blocks, block_size, Hkv, D).
+contiguous caches (B, C, Hkv, D), paged pools (num_blocks, block_size, Hkv, D).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -123,6 +124,145 @@ def causal_mask(q_positions: torch.Tensor, k_positions: torch.Tensor) -> torch.T
     """(B, Tq), (B, Tk) -> bool (B, 1, Tq, Tk): True = attend.  The paged
     paths never run sliding-window archs, so the window is left out."""
     return k_positions[:, None, None, :] <= q_positions[:, None, :, None]
+
+
+def dense_attention(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, T, d_model)
+    positions: torch.Tensor,  # (B, T), 0..T-1 on every row
+) -> torch.Tensor:
+    """Full-sequence self-attention (``forward_full``).  The attention runs
+    through ``kernels.ops.flash_attention`` at every length: the flash
+    kernel on CUDA, its plain version on the CPU.  (The reference switches
+    to its blockwise jnp form above 1024 tokens and notes that the Pallas
+    flash kernel replaces it on the TPU; the port keeps no second plain
+    version.)  Queries and keys sit at positions 0..T-1, as ``forward_full``
+    builds them; cross-attention (``kv_src``) belongs to ROADMAP Queue 1
+    item 9."""
+    q, k, v = project_qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    attn = kernel_ops.flash_attention(
+        q, k, v, causal=cfg.causal, sliding_window=cfg.sliding_window,
+        logit_softcap=cfg.logit_softcap,
+    )
+    return out_proj(p, attn)
+
+
+# ---------------------------------------------------------------------------
+# Cached attention (contiguous layout, slot-position tracked)
+#
+# A KV cache is the dict {"k", "v", "pos"}:
+#   k, v: (B, C, Hkv, D)
+#   pos:  (B, C) int32 -- the absolute token position stored in each slot,
+#         -1 for empty.  A full cache maps position p -> slot p; a
+#         sliding-window cache is a ring with slot p % C.
+# The port writes caches in place (the reference returns new arrays).
+# ---------------------------------------------------------------------------
+
+
+class KVCache:
+    """Namespace for cache helpers (caches stay plain dicts)."""
+
+    @staticmethod
+    def init(batch, capacity, kv_heads, head_dim, dtype, device="cpu"
+             ) -> Dict[str, torch.Tensor]:
+        return {
+            "k": torch.zeros((batch, capacity, kv_heads, head_dim), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, capacity, kv_heads, head_dim), dtype=dtype,
+                             device=device),
+            "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
+        }
+
+
+def write_kv(
+    cache: Dict[str, torch.Tensor],
+    k_new: torch.Tensor,  # (B, L, Hkv, D)
+    v_new: torch.Tensor,
+    positions: torch.Tensor,  # (B, L) absolute positions
+    valid: Optional[torch.Tensor] = None,  # (B, L) bool: False is not written
+) -> Dict[str, torch.Tensor]:
+    """Write L new tokens per sequence into slot ``position % C``, in place;
+    an invalid (padded) token leaves its slot as it was.  Returns ``cache``."""
+    b = positions.shape[0]
+    c = cache["k"].shape[1]
+    slots = positions.long() % c
+    rows = torch.arange(b, device=positions.device)[:, None]
+    positions = positions.to(torch.int32)
+    if valid is not None:  # merge with the slots' old contents
+        vm = valid[..., None, None]
+        k_new = torch.where(vm, k_new.to(cache["k"].dtype), cache["k"][rows, slots])
+        v_new = torch.where(vm, v_new.to(cache["v"].dtype), cache["v"][rows, slots])
+        positions = torch.where(valid, positions, cache["pos"][rows, slots])
+    cache["k"][rows, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][rows, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][rows, slots] = positions
+    return cache
+
+
+def attend_cache(
+    cfg: ModelConfig,
+    q: torch.Tensor,  # (B, Tq, H, D), roped
+    cache: Dict[str, torch.Tensor],
+    q_positions: torch.Tensor,  # (B, Tq)
+) -> torch.Tensor:
+    """Causal (+ sliding-window) attention of q against every cache slot,
+    masked by the slots' positions: the plain form, with no kernel."""
+    kp = cache["pos"][:, None, None, :]  # (B, 1, 1, C)
+    qp = q_positions[:, None, :, None]  # (B, 1, Tq, 1)
+    valid = (kp >= 0) & (kp <= qp)
+    if cfg.sliding_window:
+        valid = valid & (kp > qp - cfg.sliding_window)
+    return gqa_scores_softmax_values(q, cache["k"], cache["v"], valid,
+                                     cfg.logit_softcap)
+
+
+def cached_attention(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, L, d_model): L = 1 decode, L > 1 prefill chunk
+    cache: Dict[str, torch.Tensor],  # updated in place
+    positions: torch.Tensor,  # (B, L) absolute positions of the new tokens
+    valid: Optional[torch.Tensor] = None,  # (B, L) padding mask
+    q_offsets: Optional[Sequence[int]] = None,  # host copy of positions[:, 0]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode step or prefill chunk against a contiguous cache.
+
+    A prefill chunk on a full cache, with its rows' offsets known on the
+    host (``q_offsets``, as ``prefill_chunk`` passes them), runs the flash
+    attention (kernel on CUDA, plain version on the CPU) over the cache's
+    first ``off + L`` slots with ``q_offset = off``: one call when the rows
+    share their offset, one per row otherwise.  That is ``attend_cache``
+    exactly when slots ``0 .. off + L - 1`` hold positions
+    ``0 .. off + L - 1``, which a full cache filled chunk by chunk from
+    position 0 does; and it reads no value back to the host.  A padded
+    token of a row (``valid`` False) is not written, and only the row's
+    real tokens' outputs are read.  Decode steps (no host offsets) and ring
+    caches keep the plain masked ``attend_cache``: the reference has no
+    kernel there either."""
+    q, k, v = project_qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    write_kv(cache, k, v, positions, valid)
+    length = x.shape[1]
+    if q_offsets is None or cfg.sliding_window:
+        return out_proj(p, attend_cache(cfg, q, cache, positions)), cache
+
+    def flash(qq, kk, vv, off):
+        return kernel_ops.flash_attention(
+            qq, kk[:, :off + length], vv[:, :off + length], causal=True,
+            q_offset=off, logit_softcap=cfg.logit_softcap,
+        )
+
+    offs = [int(o) for o in q_offsets]
+    if len(set(offs)) == 1:
+        attn = flash(q, cache["k"], cache["v"], offs[0])
+    else:
+        attn = torch.cat([flash(q[i:i + 1], cache["k"][i:i + 1], cache["v"][i:i + 1], o)
+                          for i, o in enumerate(offs)])
+    return out_proj(p, attn), cache
 
 
 def paged_prefill_attention(

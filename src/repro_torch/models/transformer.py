@@ -1,34 +1,44 @@
-"""The decoder stack on the paged serving paths, in PyTorch.
+"""The decoder stack in PyTorch: the paged serving paths, the contiguous
+fallback and ``forward_full``.
 
-Counterpart of the paged entry points of ``src/repro/models/transformer.py``:
-the fused ragged batch (DESIGN.md §12) and the split per-family prefill
-chunk and decode step (``RealEngineConfig(fused_batch=False)``).  Parameters keep the reference's nested-dict layout with
-period-major stacking: every leaf under ``params["layers"][str(i)]`` has a
-leading ``num_periods`` axis, and so do the paged pools.  Two changes from
-the reference: the ``lax.scan`` over periods is a Python loop, and the
-pools are updated in place (the layer views ``pools[i][kv][period]`` are
-written by ``cache_ops.write_ragged``), where the reference slices,
+Counterpart of ``src/repro/models/transformer.py``: the fused ragged batch
+(DESIGN.md §12), the split per-family prefill chunk and decode step
+(``RealEngineConfig(fused_batch=False)``), and on contiguous per-request
+caches ``forward_full``, ``prefill_chunk``, ``decode_step`` and
+``run_segment`` (``RealEngineConfig(backend="contiguous")``).  Parameters
+keep the reference's nested-dict layout with period-major stacking: every
+leaf under ``params["layers"][str(i)]`` has a leading ``num_periods`` axis,
+and so do the paged pools and the contiguous caches.  Two changes from the
+reference: the ``lax.scan`` over periods is a Python loop, and pools and
+caches are updated in place (the layer views ``pools[i][kv][period]`` and
+``caches[i][leaf][period]`` are written), where the reference slices,
 updates and merges functional copies.
 
-Only architectures whose every layer is plain causal attention with a dense
-MLP run here; the contiguous fallback and the other families are
-ROADMAP Queue 1 item 9.
+Only architectures whose every layer is plain causal full attention with a
+dense MLP run here; the other families (SSM, MoE, cross-attention, sliding
+windows, encoders, VLMs) are ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .config import FFN_DENSE, MIXER_ATTN, ModelConfig
 from .layers import (
+    KVCache,
     RaggedMeta,
+    apply_rope,
+    cached_attention,
+    dense_attention,
     mlp,
     paged_decode_attention,
     paged_prefill_attention,
     paged_ragged_attention,
+    project_qkv,
     rmsnorm,
+    write_kv,
 )
 
 PyTree = Any
@@ -50,8 +60,9 @@ def _check_supported(cfg: ModelConfig) -> None:
         s.ffn != FFN_DENSE for s in cfg.layer_pattern()
     ) or not cfg.embed_inputs or cfg.vision_dim:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs only dense causal-attention stacks "
-            "on the paged path (other families: ROADMAP Queue 1 item 9)"
+            f"{cfg.name}: the port runs only dense causal full-attention "
+            "stacks, paged or contiguous (SSM, MoE, cross-attention, sliding "
+            "windows, encoders and VLMs: ROADMAP Queue 1 item 9)"
         )
 
 
@@ -138,6 +149,36 @@ def init_paged_pools(
     }
 
 
+def cache_capacity(cfg: ModelConfig, max_seq: int) -> int:
+    return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+
+
+def init_caches(
+    cfg: ModelConfig,
+    batch: int,
+    max_seq: int,
+    dtype=torch.float32,
+    device="cpu",
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Contiguous per-pattern-position caches, each leaf stacked over
+    periods: ``{"k", "v"}`` (P, B, C, Hkv, D) and ``"pos"`` (P, B, C),
+    -1 for empty slots."""
+    caches = {}
+    cap = cache_capacity(cfg, max_seq)
+    for i, spec in enumerate(cfg.layer_pattern()):
+        if spec.mixer != MIXER_ATTN:
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.mixer} caches are not ported yet (ROADMAP "
+                "Queue 1 item 9)"
+            )
+        one = KVCache.init(batch, cap, cfg.num_kv_heads, cfg.resolved_head_dim,
+                           dtype, device)
+        caches[str(i)] = {
+            k: v[None].repeat((cfg.num_periods,) + (1,) * v.ndim) for k, v in one.items()
+        }
+    return caches
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -176,11 +217,17 @@ def ragged_lm_head(
 # ---------------------------------------------------------------------------
 
 
-def _period(tree: PyTree, per: int) -> PyTree:
+def _period(tree: Optional[PyTree], per: int) -> Optional[PyTree]:
     """One period's slice of a period-stacked tree (views, no copies)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _period(v, per) for k, v in tree.items()}
     return tree[per]
+
+
+PAGED_MODES = ("ragged", "prefill", "decode")
+CONTIGUOUS_MODES = ("full", "prefill", "decode")
 
 
 def run_periods(
@@ -188,33 +235,52 @@ def run_periods(
     layer_params: PyTree,  # period-stacked params["layers"]
     lo: int,
     num: int,
-    x: torch.Tensor,  # (1, T, d) ragged; (B, L, d) prefill; (B, 1, d) decode
-    pools: Dict[str, PyTree],  # period-stacked pools, updated in place
-    block_tables: torch.Tensor,
+    x: torch.Tensor,  # (1, T, d) ragged; (B, L, d) prefill / full; (B, 1, d) decode
+    caches: Optional[Dict[str, PyTree]],  # period-stacked pools or caches, in place
+    block_tables: Optional[torch.Tensor],  # None: contiguous caches
     positions: torch.Tensor,  # same leading shape as x
     meta: Optional[RaggedMeta] = None,  # the fused ragged batch's addressing
-    mode: str = "ragged",  # "ragged" | "prefill" | "decode"
+    mode: str = "ragged",
+    *,
+    valid: Optional[torch.Tensor] = None,  # (B, L) padding mask (contiguous)
+    q_offsets: Optional[Sequence[int]] = None,  # host chunk offsets (contiguous)
 ) -> torch.Tensor:
-    """Periods [lo, lo + num) of the paged stack; returns x.  ``mode``
-    picks each layer's attention: the fused ragged batch (with ``meta``),
-    or the split path's prefill chunk or one-token decode."""
-    if (mode == "ragged") != (meta is not None) or mode not in (
-        "ragged", "prefill", "decode"
-    ):
-        raise ValueError(f"mode {mode!r} with meta={meta is not None}")
+    """Periods [lo, lo + num) of the stack; returns x.
+
+    Paged (``block_tables`` given), ``mode`` picks each layer's attention:
+    the fused ragged batch (with ``meta``), or the split path's prefill
+    chunk or one-token decode.  Contiguous (``block_tables`` None):
+    ``full`` runs the whole sequence with no prior context and, when
+    ``caches`` is given, emits them (writes the roped K/V); ``prefill`` and
+    ``decode`` attend through the caches (``cached_attention``)."""
+    paged = block_tables is not None
+    if paged and ((mode == "ragged") != (meta is not None) or mode not in PAGED_MODES):
+        raise ValueError(f"paged mode {mode!r} with meta={meta is not None}")
+    if not paged and (meta is not None or mode not in CONTIGUOUS_MODES
+                      or (caches is None and mode != "full")):
+        raise ValueError(f"contiguous mode {mode!r} with caches={caches is not None}")
     pattern = cfg.layer_pattern()
     for per in range(lo, lo + num):
         for i, _spec in enumerate(pattern):
             lp = _period(layer_params[str(i)], per)
-            pool = _period(pools[str(i)], per)  # in-place views of the pools
+            cache = _period(caches[str(i)], per) if caches is not None else None
             h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-            if mode == "ragged":
+            if paged and mode == "ragged":
                 mix, _ = paged_ragged_attention(
-                    cfg, lp["mixer"], h, pool, block_tables, positions, meta
+                    cfg, lp["mixer"], h, cache, block_tables, positions, meta
                 )
-            else:
+            elif paged:
                 attn = paged_decode_attention if mode == "decode" else paged_prefill_attention
-                mix, _ = attn(cfg, lp["mixer"], h, pool, block_tables, positions)
+                mix, _ = attn(cfg, lp["mixer"], h, cache, block_tables, positions)
+            elif mode == "full":
+                mix = dense_attention(cfg, lp["mixer"], h, positions)
+                if cache is not None:  # emit the caches: the roped K/V
+                    _, k, v = project_qkv(cfg, lp["mixer"], h)
+                    k = apply_rope(k, positions, cfg.rope_theta)
+                    write_kv(cache, k, v, positions, valid)
+            else:
+                mix, _ = cached_attention(cfg, lp["mixer"], h, cache, positions,
+                                          valid, q_offsets)
             x = x + mix
             if "ffn" in lp:
                 x = x + mlp(cfg, lp["ffn"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
@@ -340,6 +406,144 @@ def run_segment_paged(
     lo, hi = segment_bounds(cfg, seg)
     return run_segment_paged_at(cfg, params, hi - lo, lo, x, pools,
                                 block_tables, positions)
+
+
+# ---------------------------------------------------------------------------
+# Contiguous entry points (per-request caches; RealEngineConfig(
+# backend="contiguous")) and the whole-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def forward_full(
+    cfg: ModelConfig,
+    params: PyTree,
+    inputs: torch.Tensor,  # (B, T) tokens
+    *,
+    emit_caches: bool = False,
+    max_seq: Optional[int] = None,
+    cache_dtype=None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, PyTree]], torch.Tensor]:
+    """Whole-sequence forward.  Returns ((B, T, V) fp32 logits, caches of
+    capacity ``max_seq or T`` holding the sequence when ``emit_caches``,
+    else None, and the auxiliary loss, 0 for the dense stacks the port
+    runs).  Every layer's attention is the flash attention over the whole
+    sequence (the kernel on CUDA)."""
+    _check_supported(cfg)
+    x = embed(cfg, params, inputs)
+    b, t = inputs.shape
+    positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    caches = (
+        init_caches(cfg, b, max_seq or t, cache_dtype or x.dtype, x.device)
+        if emit_caches else None
+    )
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
+                    positions, mode="full")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_head(cfg, params, x), caches, aux
+
+
+def _chunk_positions(offsets: Sequence[int], length: int, device) -> torch.Tensor:
+    """(B, L) positions ``offsets[b] + j``, built on the device from host
+    integers (no read-back)."""
+    ar = torch.arange(length, dtype=torch.int32, device=device)
+    offs = [int(o) for o in offsets]
+    if len(set(offs)) == 1:
+        return (ar + offs[0]).expand(len(offs), length)
+    return torch.tensor(offs, dtype=torch.int32).to(device)[:, None] + ar[None, :]
+
+
+def prefill_chunk(
+    cfg: ModelConfig,
+    params: PyTree,
+    tokens: torch.Tensor,  # (B, L) chunk tokens
+    caches: Dict[str, PyTree],  # updated in place
+    offsets: Sequence[int],  # (B,) host ints: tokens already prefilled per row
+    *,
+    lengths: Optional[torch.Tensor] = None,  # (B,) valid tokens in this chunk
+) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """Chunked prefill on contiguous caches.  Returns ((B, V) logits of each
+    row's last valid token, caches updated in place).  ``offsets`` are host
+    integers (the reference takes a device array): the engine knows them,
+    and the flash kernel's ``q_offset`` needs them without a read-back."""
+    _check_supported(cfg)
+    x = embed(cfg, params, tokens)
+    b, l = tokens.shape
+    positions = _chunk_positions(offsets, l, x.device)
+    valid = None
+    if lengths is not None:
+        valid = torch.arange(l, device=x.device)[None, :] < lengths[:, None]
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
+                    positions, mode="prefill", valid=valid, q_offsets=offsets)
+    if lengths is None:
+        xl = x[:, -1:, :]
+    else:
+        last = (lengths.long() - 1).clamp(min=0)
+        xl = x[torch.arange(b, device=x.device), last][:, None, :]
+    return lm_head(cfg, params, xl)[:, 0, :], caches
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: PyTree,
+    last_tokens: torch.Tensor,  # (B,) int32
+    caches: Dict[str, PyTree],  # updated in place
+    seq_lens: torch.Tensor,  # (B,) current lengths (the new token's position)
+) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """One decode iteration on contiguous caches (plain masked attention
+    over the cache, as in the reference).  Returns ((B, V) logits, caches
+    updated in place)."""
+    _check_supported(cfg)
+    x = embed(cfg, params, last_tokens[:, None])
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
+                    seq_lens[:, None], mode="decode")
+    return lm_head(cfg, params, x)[:, 0, :], caches
+
+
+def slice_periods(tree: PyTree, lo: int, hi: int) -> PyTree:
+    """Periods [lo, hi) of a period-stacked tree, as views."""
+    if isinstance(tree, dict):
+        return {k: slice_periods(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
+def merge_periods(tree: PyTree, update: PyTree, lo: int, hi: int) -> PyTree:
+    """Write ``update`` into periods [lo, hi) of ``tree`` in place and return
+    ``tree``; an update that is that very slice (written in place through
+    ``slice_periods`` views) is not copied onto itself."""
+    if isinstance(tree, dict):
+        for k in tree:
+            merge_periods(tree[k], update[k], lo, hi)
+        return tree
+    dst = tree[lo:hi]
+    if not (dst.data_ptr() == update.data_ptr() and dst.shape == update.shape
+            and dst.stride() == update.stride()):
+        dst.copy_(update)
+    return tree
+
+
+def run_segment(
+    cfg: ModelConfig,
+    params: PyTree,
+    seg: int,
+    x: torch.Tensor,
+    caches: Optional[Dict[str, PyTree]],
+    *,
+    mode: str,
+    positions: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    q_offsets: Optional[Sequence[int]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, PyTree]]]:
+    """One preemptible segment (periods [lo, hi)) on contiguous caches.
+    The caches are updated in place; the engine runs it on a stacked copy
+    of its per-request caches, so an aborted decode leaves them untouched."""
+    lo, hi = segment_bounds(cfg, seg)
+    lp = slice_periods(params["layers"], lo, hi)
+    cs = slice_periods(caches, lo, hi) if caches is not None else None
+    x = run_periods(cfg, lp, 0, hi - lo, x, cs, None, positions, mode=mode,
+                    valid=valid, q_offsets=q_offsets)
+    if caches is not None:
+        merge_periods(caches, cs, lo, hi)
+    return x, caches
 
 
 # ---------------------------------------------------------------------------

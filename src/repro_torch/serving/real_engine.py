@@ -3,12 +3,13 @@
 a CUDA card (or the CPU, when the caller asks for it).
 
 Counterpart of ``src/repro/serving/real_engine.py`` restricted to its
-paged serial single-device paths: the paged KV pool, the fused ragged batch
+serial single-device paths: the paged KV pool with the fused ragged batch
 (``fused_batch=True``, the default) or the split per-family dispatches
-(``fused_batch=False``, the fused path's differential oracle), the serial
-engine (``pipeline=False``) and a single device (``mesh=None``).  Any other
-setting raises ``NotImplementedError`` naming the ROADMAP item that brings
-it.
+(``fused_batch=False``, the fused path's differential oracle), and the
+contiguous per-request caches (``backend="contiguous"``); the serial engine
+(``pipeline=False``) and a single device (``mesh=None``).  Any other
+setting, and any architecture but a dense causal full-attention stack,
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 * Physical KV layout: shared pools ``(num_periods, num_device_blocks + 1,
   block_size, Hkv, D)`` per pattern position, updated in place; the last
@@ -25,6 +26,15 @@ it.
   ``decode_step_paged`` at a power-of-two batch bucket, segment by segment
   when the plan is preemptible; each decode layer runs the paged decode
   attention kernel once.
+* Contiguous: one B=1 cache per request (``self.caches``), each leaf
+  (P, 1, max_model_len, ...).  Each prefill chunk is one ``prefill_chunk``
+  dispatch per request, whose attention runs the flash attention kernel in
+  every layer; the plan's decodes concatenate their requests' caches into
+  one batch, run ``decode_step`` (segment by segment when preemptible:
+  ``run_segment``, plain masked attention over the cache, as in the
+  reference) and slice the batch back.  Checkpoints copy cache slots to the
+  host, a swap-out does the same, a discard drops the cache, and a resume
+  builds a fresh cache and restores the stored blocks into it.
 * ``calibrate()`` times the engine's own dispatches over the serve-time
   shape grid on the host clock (dispatch plus device synchronisation) and
   installs the fitted ``MeasuredProfiler`` as the scheduler's latency model.
@@ -97,7 +107,7 @@ class RealEngineConfig:
     enable_checkpointing: bool = True
     enable_safepoints: bool = True
     max_steps: int = 100_000
-    # "auto" or "paged": the paged paths; "contiguous" is not ported
+    # "auto": paged when the arch supports it; "paged"/"contiguous" force.
     backend: str = "auto"
     # largest batched-prefill dispatch of the split path (a bigger prefill
     # wave is split into several dispatches, each boundary a safepoint of
@@ -130,11 +140,13 @@ class RealEngine:
     ):
         if eng_cfg.backend not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown backend {eng_cfg.backend!r}")
-        if eng_cfg.backend == "contiguous" or not tf.supports_paged(cfg):
-            raise NotImplementedError(
-                "the contiguous fallback is not ported yet (ROADMAP Queue 1 "
-                "item 9)"
-            )
+        if eng_cfg.backend == "paged" and not tf.supports_paged(cfg):
+            raise ValueError(f"{cfg.name}: arch cannot run the paged backend")
+        # every arch the port runs is a dense causal full-attention stack,
+        # which runs paged or contiguous; the others fall back to the
+        # contiguous layout in the reference and raise here (item 9)
+        tf._check_supported(cfg)
+        self.paged = eng_cfg.backend != "contiguous"
         if eng_cfg.pipeline:
             raise NotImplementedError(
                 "the async pipeline is not ported yet (ROADMAP Queue 1 item 6)"
@@ -149,13 +161,13 @@ class RealEngine:
         self.params = to_device(params, self.device)
         self.dtype = self.params["embed"].dtype
         self.ec = eng_cfg
-        self.fused = eng_cfg.fused_batch
+        self.fused = self.paged and eng_cfg.fused_batch
         self.sampling = sampling
         self._clock = clock or time.perf_counter
 
         self.blocks = BlockManager(
             eng_cfg.num_device_blocks, eng_cfg.num_host_blocks,
-            eng_cfg.block_size, prefix_cache=eng_cfg.prefix_cache,
+            eng_cfg.block_size, prefix_cache=eng_cfg.prefix_cache and self.paged,
         )
         # Fault injection (DESIGN.md §16): the manager arms the pool points,
         # the engine the dispatch points; _step_snap is the pre-iteration
@@ -177,6 +189,8 @@ class RealEngine:
         lat = AnalyticalCostModel(cfg, hw)  # the prior until measured
         self.sched = UnifiedScheduler(cfg, lat, slo, self.blocks, sched_cfg)
 
+        # KV-block checkpoint/restore is exact for every arch the port runs
+        # (plain causal full attention, paged or contiguous)
         self.ckpt = Checkpointer(
             self.blocks,
             AdaptiveCheckpointPolicy(start_threshold=0.0),  # always checkpoint
@@ -217,10 +231,13 @@ class RealEngine:
 
         self._scratch_block = eng_cfg.num_device_blocks
         self._table_width = self.blocks.blocks_for_tokens(eng_cfg.max_model_len)
-        self.pools = tf.init_paged_pools(
-            cfg, eng_cfg.num_device_blocks + 1, eng_cfg.block_size,
-            dtype=self.dtype, device=self.device,
-        )
+        if self.paged:
+            self.pools = tf.init_paged_pools(
+                cfg, eng_cfg.num_device_blocks + 1, eng_cfg.block_size,
+                dtype=self.dtype, device=self.device,
+            )
+        else:
+            self.caches: Dict[int, Any] = {}  # request_id -> B=1 cache tree
 
     @property
     def fused_trace_count(self) -> int:
@@ -323,6 +340,28 @@ class RealEngine:
         for pos, kv in self._leaves():
             cache_ops.copy_blocks(self.pools[pos][kv], src, dst, dim=1)
 
+    # ------------------------------------------------------ contiguous layout
+    def _fresh_cache(self, req: Request) -> Any:
+        return tf.init_caches(self.cfg, 1, self.ec.max_model_len, dtype=self.dtype,
+                              device=self.device)
+
+    def _extract_block(self, cache: Any, block_idx: int) -> Any:
+        """Host copy of one block's slots of every leaf of a B=1 cache:
+        ``{pos: {"k", "v": (P, 1, bs, Hkv, D), "pos": (P, 1, bs)}}``."""
+        lo = block_idx * self.ec.block_size
+        hi = lo + self.ec.block_size
+        return {pos: {name: leaf[:, :, lo:hi].to("cpu", copy=True)
+                      for name, leaf in c.items()}
+                for pos, c in cache.items()}
+
+    def _restore_block(self, cache: Any, block_idx: int, stored: Any) -> Any:
+        """Write a stored block back into its slots of ``cache``, in place."""
+        lo = block_idx * self.ec.block_size
+        for pos, leaves in stored.items():
+            for name, blk in leaves.items():
+                cache[pos][name][:, :, lo:lo + blk.shape[2]].copy_(blk)
+        return cache
+
     # ---------------------------------------------------------------- events
     def _process_events(self) -> None:
         for kind, req, payload in self.sched.events:
@@ -330,30 +369,47 @@ class RealEngine:
             if kind in ("preempt_discard", "preempt_swap"):
                 if kind == "preempt_swap" and payload:
                     # blocking swap-out of the un-checkpointed blocks
-                    stored = self._extract_blocks_paged(
-                        [dev for _idx, dev, _host in payload]
-                    )
+                    if self.paged:
+                        stored = self._extract_blocks_paged(
+                            [dev for _idx, dev, _host in payload]
+                        )
+                    else:
+                        cache = self.caches.get(rid)
+                        stored = [None if cache is None else self._extract_block(cache, idx)
+                                  for idx, _dev, _host in payload]
                     for (idx, _dev, _host), blk in zip(payload, stored):
-                        self.host.put(rid, idx, blk)
+                        if blk is not None:
+                            self.host.put(rid, idx, blk)
+                if not self.paged:
+                    self.caches.pop(rid, None)
                 self.ckpt.unmark(req)  # discard: pure table edits (§4.4)
             elif kind == "cow":
                 # duplicate shared blocks before this iteration's writes land
                 # in them; host bytes of the re-written indices are stale
-                if payload:
+                if self.paged and payload:
                     self._cow_blocks_paged(payload)
                 for idx, _src, _dst in payload:
                     self.host.pop(rid, idx)
             elif kind == "resume":
                 nrec = self.blocks.blocks_for_tokens(req.host_recoverable)
-                sb = self.blocks.seq(rid)
-                devs, blks = [], []
-                for b in range(nrec):
-                    stored = self.host.get(rid, b)
-                    if stored is not None:
-                        devs.append(sb.device_blocks[b])
-                        blks.append(stored)
-                if devs:
-                    self._restore_blocks_paged(devs, blks)
+                if self.paged:
+                    sb = self.blocks.seq(rid)
+                    devs, blks = [], []
+                    for b in range(nrec):
+                        stored = self.host.get(rid, b)
+                        if stored is not None:
+                            devs.append(sb.device_blocks[b])
+                            blks.append(stored)
+                    if devs:
+                        self._restore_blocks_paged(devs, blks)
+                else:
+                    cache = self._fresh_cache(req)
+                    for b in range(nrec):
+                        stored = self.host.get(rid, b)
+                        if stored is not None:
+                            self._restore_block(cache, b, stored)
+                            self.restored_blocks += 1
+                    self.caches[rid] = cache
         self.sched.events.clear()
 
     # --------------------------------------------------- fault injection (§16)
@@ -413,6 +469,8 @@ class RealEngine:
         if self.blocks.has_seq(req.request_id):
             self.blocks.free_seq(req.request_id)
         self.host.drop_seq(req.request_id)
+        if not self.paged:
+            self.caches.pop(req.request_id, None)
 
     # ------------------------------------------------------------------ step
     def step(self) -> bool:
@@ -447,9 +505,14 @@ class RealEngine:
         if self.fused:
             aborted = self._run_fused(plan, preemptible, tokens)
         else:
-            aborted = self._prefill_paged_batched(plan, preemptible, tokens)
+            if self.paged:
+                aborted = self._prefill_paged_batched(plan, preemptible, tokens)
+            else:
+                aborted = False  # contiguous prefill has no safepoints
+                self._prefill_contiguous(plan, tokens)
             if plan.decode_reqs and not aborted:
-                logits, aborted = self._decode_paged(plan.decode_reqs, preemptible)
+                decode = self._decode_paged if self.paged else self._decode_contiguous
+                logits, aborted = decode(plan.decode_reqs, preemptible)
                 if not aborted:
                     self._sample(logits, plan.decode_reqs, tokens)
 
@@ -458,6 +521,10 @@ class RealEngine:
         self.measured_iter_seconds += time.perf_counter() - t_iter0
         self.predicted_iter_seconds += predicted_s
         self.measured_iters += 1
+        if not self.paged:
+            for rid in list(self.caches):
+                if not self.blocks.has_seq(rid):
+                    self.caches.pop(rid, None)
         for sid in self.host.seq_ids():
             if not self.blocks.has_seq(sid):
                 self.host.drop_seq(sid)
@@ -474,6 +541,12 @@ class RealEngine:
         self.ckpt.mark(executed_offline)
         chosen = self.ckpt.plan(io_budget_blocks=1 << 30)
         if not chosen:
+            return
+        if not self.paged:
+            for seq_id, idx, _dev, _host in chosen:
+                cache = self.caches.get(seq_id)
+                if cache is not None:
+                    self.host.put(seq_id, idx, self._extract_block(cache, idx))
             return
         stored = self._extract_blocks_paged([c[2] for c in chosen])
         for (seq_id, idx, _dev, _host), blk in zip(chosen, stored):
@@ -757,6 +830,73 @@ class RealEngine:
             return None, True
         return tf.lm_head(self.cfg, self.params, x)[:, 0, :], False
 
+    # ------------------------------------------------ contiguous fallback
+    def _prefill_contiguous(self, plan, tokens: Dict[int, int]) -> None:
+        """Per-request prefill chunks on the contiguous layout: one
+        ``prefill_chunk`` dispatch per chunk, against the request's cache."""
+        for chunk in plan.prefill_chunks:
+            r = chunk.request
+            rid = r.request_id
+            if not self.cfg.causal:
+                # the reference runs an encoder job as one forward_full
+                raise NotImplementedError(
+                    "encoder prefill is not ported yet (ROADMAP Queue 1 item 9)"
+                )
+            toks = self._tokens_of(r)[chunk.offset : chunk.offset + chunk.length]
+            if rid not in self.caches:
+                self.caches[rid] = self._fresh_cache(r)
+            self.dispatches["prefill"] += 1
+            logits, _ = tf.prefill_chunk(
+                self.cfg, self.params, self._put(toks[None]), self.caches[rid],
+                [chunk.offset],
+            )
+            if chunk.offset + chunk.length == r.kv_target and r.num_generated == 0:
+                self._sample(logits, [r], tokens)
+
+    def _decode_contiguous(self, reqs: List[Request], use_safepoints: bool):
+        """One decode batch over the requests' caches: concatenated into one
+        batch (a copy), run in place, then sliced back (views of the batch).
+        An aborted attempt leaves the requests' own caches untouched.
+        Returns ``(logits (len(reqs), V) | None, aborted)``."""
+        first = self.caches[reqs[0].request_id]
+        stacked = {
+            pos: {name: torch.cat([self.caches[r.request_id][pos][name] for r in reqs], dim=1)
+                  for name in first[pos]}
+            for pos in first
+        }
+        last = self._put(np.asarray([self._tokens_of(r)[-1] for r in reqs], np.int32))
+        lens = self._put(np.asarray([r.total_len - 1 for r in reqs], np.int32))
+        if use_safepoints:
+            logits, aborted = self._segmented_decode(stacked, last, lens)
+            if aborted:
+                return None, True
+        else:
+            self.dispatches["decode"] += 1
+            logits, _ = tf.decode_step(self.cfg, self.params, last, stacked, lens)
+        for i, r in enumerate(reqs):
+            self.caches[r.request_id] = {
+                pos: {name: leaf[:, i : i + 1] for name, leaf in c.items()}
+                for pos, c in stacked.items()
+            }
+        return logits, False
+
+    def _segmented_decode(self, stacked, last, lens):
+        """Safepoint-instrumented contiguous decode: one dispatch per
+        K-layer segment, flag check between them (§4.3)."""
+        x = tf.embed(self.cfg, self.params, last[:, None])
+        positions = lens[:, None]
+        seg_of = {lo: i for i, (lo, _pps) in enumerate(tf.segment_spans(self.cfg))}
+
+        def seg(lo, _pps, h):
+            h, _ = tf.run_segment(self.cfg, self.params, seg_of[lo], h, stacked,
+                                  mode="decode", positions=positions)
+            return h
+
+        x, aborted = self._run_segments(x, seg, "segment", True)
+        if aborted:
+            return None, True
+        return tf.lm_head(self.cfg, self.params, x)[:, 0, :], False
+
     # ----------------------------------------------------------- calibration
     def calibrate(self, grid: Optional[CalibrationGrid] = None) -> MeasuredProfiler:
         """On-device calibration pass (DESIGN.md §10).
@@ -765,13 +905,16 @@ class RealEngine:
         on the fused path fused ragged dispatches (pure prefill, pure
         decode, and mixed chunk + decode points at
         ``CalibrationGrid.token_buckets``); on the split path bucketed
-        prefill groups and decode batches -- fits a ``MeasuredProfiler``
+        prefill groups and decode batches; on the contiguous path
+        one-sequence prefill chunks and decode batches -- fits a ``MeasuredProfiler``
         and installs it as the scheduler's latency model, so token budgets
         come from measured time on this card instead of the analytical
         prior.  Each probe is timed on the host clock around the dispatch
         and a device synchronisation: the scheduler budgets wall time, and
         the host's share of a step counts.  Probes address only the scratch
-        row, so calibration never perturbs live KV."""
+        row (paged) or throwaway caches allocated per call (contiguous, as
+        in the reference: its decode times include that allocation), so
+        calibration never perturbs live KV."""
         if grid is None:
             grid = self._default_grid()
         if grid.pipeline_depth != 1:
@@ -836,6 +979,20 @@ class RealEngine:
                     decode_ctx=ndec * kv, num_seqs=1 + ndec,
                 )
                 return shape, timed(probe(items))
+        elif not self.paged:
+            def prefill_timer(b: int, c: int) -> float:
+                del b  # contiguous prefill is one sequence per dispatch
+                toks = self._put(np.zeros((1, c), np.int32))
+                return timed(lambda: tf.prefill_chunk(
+                    self.cfg, self.params, toks,
+                    tf.init_caches(self.cfg, 1, max_ctx, self.dtype, dev), [0]))
+
+            def decode_timer(b: int, ctx: int) -> float:
+                last = self._put(np.zeros((b,), np.int32))
+                lens = self._put(np.full((b,), min(ctx, max_ctx - 1), np.int32))
+                return timed(lambda: tf.decode_step(
+                    self.cfg, self.params, last,
+                    tf.init_caches(self.cfg, b, max_ctx, self.dtype, dev), lens))
         else:
             width = self._table_width
 
@@ -858,6 +1015,9 @@ class RealEngine:
         def swap_timer(n: int):
             nbytes = n * block_bytes(self.cfg, self.ec.block_size)
             return nbytes, timed(lambda: self._extract_blocks_paged([scratch] * n))
+
+        if not self.paged:
+            swap_timer = None  # as in the reference: no swap probes
 
         prof = calibrate(prefill_timer, decode_timer, max_ctx, grid, swap_timer,
                          fused_timer=fused_timer)
@@ -884,7 +1044,9 @@ class RealEngine:
         tok0 = pow2_bucket(top + 1)
         return CalibrationGrid(
             chunk_sizes=chunks,
-            prefill_batches=pow2s(pow2_bucket(max(1, self.ec.max_prefill_batch))),
+            # contiguous prefill is one sequence per dispatch
+            prefill_batches=(pow2s(pow2_bucket(max(1, self.ec.max_prefill_batch)))
+                             if self.paged else (1,)),
             decode_buckets=pow2s(pow2_bucket(self.sched.sc.max_batch_seqs)),
             token_buckets=(tok0, 2 * tok0) if self.fused else (),
         )

@@ -161,10 +161,12 @@ def test_resumed_work_never_lands_in_the_scratch_block():
 def test_engine_refuses_what_is_not_ported():
     cfg = get_config_t("llama-2-7b").reduced()
     params = bridge.to_torch(_weights("llama-2-7b")[2])
-    for kw, item in [(dict(pipeline=True), "item 6"), (dict(mesh=object()), "item 8"),
-                     (dict(backend="contiguous"), "item 9")]:
+    windowed = dataclasses.replace(cfg, sliding_window=8)  # a ring cache
+    for c, kw, item in [(cfg, dict(pipeline=True), "item 6"),
+                        (cfg, dict(mesh=object()), "item 8"),
+                        (windowed, dict(backend="contiguous"), "item 9")]:
         with pytest.raises(NotImplementedError, match=item):
-            engine_t.RealEngine(cfg, params, eng_cfg=engine_t.RealEngineConfig(**kw),
+            engine_t.RealEngine(c, params, eng_cfg=engine_t.RealEngineConfig(**kw),
                                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -12,13 +12,17 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.kv_checkpoint import checkpoint_gather as jax_gather  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
 from repro.kernels.paged_attention import (  # noqa: E402
     paged_attention as jax_paged,
     ragged_paged_attention as jax_ragged,
 )
 from repro.kvcache import cache_ops as jco  # noqa: E402
-from repro_torch.kernels import kv_checkpoint, ops, paged_attention  # noqa: E402
+from repro_torch.kernels import flash_attention, kv_checkpoint, ops, paged_attention  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kvcache import cache_ops as tco  # noqa: E402
 
 # fp32 on both sides; the sums run in another order (the reference's own
@@ -160,8 +164,14 @@ def test_ops_dispatch_by_device():
     dec = [torch.from_numpy(a) for a in _decode_inputs(*DECODE_CASES[1], seed=8)]
     assert torch.equal(ops.paged_attention(*dec, logit_softcap=30.0),
                        tco.paged_attention_ref(*dec, logit_softcap=30.0))
+    q, k, v = (torch.from_numpy(_rand(shape, 20 + i)) for i, shape in
+               enumerate([(1, 9, 4, 64), (1, 20, 2, 64), (1, 20, 2, 64)]))
+    kw = dict(causal=True, sliding_window=5, q_offset=11, logit_softcap=30.0)
+    assert torch.equal(ops.flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw))
     assert ops.launch_counts() == {"ragged_paged_attention": 0, "paged_attention": 0,
-                                   "checkpoint_gather": 0}
+                                   "checkpoint_gather": 0, "flash_attention": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention.ragged_paged_attention(*args)
     with pytest.raises(ValueError, match="CUDA"):
@@ -266,3 +276,80 @@ def test_write_paged_chunk_matches_reference_and_drops():
     tco.write_paged_chunk(tk, tv, *map(torch.from_numpy, (kn, vn, tables, positions)))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# ------------------------------------------------------------ flash attention
+# The six cases of tests/test_kernels.py (FLASH_CASES), run the same way:
+# b, tq, tk, h, hkv, d, causal, window, q_offset, dtype
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 64, True, 0, 0, "float32"),
+    (1, 96, 224, 4, 4, 32, True, 0, 128, "float32"),  # chunked prefill
+    (2, 64, 64, 8, 2, 64, True, 48, 0, "float32"),  # sliding window
+    (1, 80, 80, 2, 2, 128, False, 0, 0, "float32"),  # encoder
+    (1, 70, 70, 4, 1, 64, True, 0, 0, "float32"),  # MQA + ragged tail
+    (1, 64, 64, 4, 2, 64, True, 0, 0, "bfloat16"),
+]
+# the reference's own kernel-vs-oracle tolerances (tests/test_kernels.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _flash_inputs(b, tq, tk, h, hkv, d, seed):
+    return _rand((b, tq, h, d), seed), _rand((b, tk, hkv, d), seed + 1), \
+        _rand((b, tk, hkv, d), seed + 2)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_ref_matches_pallas_and_oracle(case):
+    """The port's plain version against the Pallas kernel (interpret mode,
+    32-wide blocks as the reference's test runs it) and the jnp oracle."""
+    b, tq, tk, h, hkv, d, causal, sw, qo, dname = case
+    arrs = _flash_inputs(b, tq, tk, h, hkv, d, 30)
+    jq, jk, jv = (jnp.asarray(a).astype(dname) for a in arrs)
+    tq_, tk_, tv_ = (torch.from_numpy(a).to(getattr(torch, dname)) for a in arrs)
+    kw = dict(causal=causal, sliding_window=sw, q_offset=qo)
+    got = flash_attention_ref(tq_, tk_, tv_, **kw)
+    assert got.dtype == tq_.dtype and got.shape == (b, tq, h, d)
+    got = got.float().numpy()
+    pallas = jax_flash(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw)
+    oracle = jref.flash_attention_ref(jq, jk, jv, **kw)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                                   atol=FLASH_TOL[dname], rtol=0)
+
+
+# (b, tq, tk, h, hkv, d, causal, window, q_offset): softcap cases against the
+# reference's blockwise attention, which has the softcap the Pallas kernel
+# lacks (positions: q_offset + t for queries, s for keys)
+SOFTCAP_CASES = [
+    (2, 40, 72, 4, 2, 64, True, 0, 32),  # chunk behind a cached prefix
+    (1, 50, 50, 4, 4, 32, True, 16, 0),  # sliding window
+    (1, 24, 40, 2, 1, 64, False, 0, 0),  # non-causal
+]
+
+
+@pytest.mark.parametrize("case", SOFTCAP_CASES)
+def test_flash_attention_ref_softcap_matches_blockwise_attention(case):
+    b, tq, tk, h, hkv, d, causal, sw, qo = case
+    q, k, v = _flash_inputs(b, tq, tk, h, hkv, d, 40)
+    qpos = np.broadcast_to(qo + np.arange(tq, dtype=np.int32), (b, tq))
+    kpos = np.broadcast_to(np.arange(tk, dtype=np.int32), (b, tk))
+    want = jl.blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(qpos),
+        jnp.asarray(kpos), causal=causal, sliding_window=sw, logit_softcap=30.0,
+        block_q=16, block_k=32,
+    )
+    got = flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              causal=causal, sliding_window=sw, q_offset=qo,
+                              logit_softcap=30.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_flash_attention_ref_rows_that_keep_no_key_are_zero():
+    """A row with no kept key writes 0 (the kernel's safe divisor)."""
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(1, 8, 64, 4, 2, 64, 50))
+    out = flash_attention_ref(q, k, v, causal=False, sliding_window=16, q_offset=100)
+    assert torch.equal(out, torch.zeros_like(out))
+    # rows at 75..78 keep keys 60..63 of their window; rows at 79..82 none
+    out = flash_attention_ref(q, k, v, causal=False, sliding_window=16, q_offset=75)
+    assert out[0, :4].abs().amax(dim=(1, 2)).min() > 0
+    assert torch.equal(out[0, 4:], torch.zeros_like(out[0, 4:]))

@@ -5,6 +5,7 @@ Both packages compute with the same weights (the reference's
 and the same numpy inputs, at fp32, on ``.reduced()`` Llama-2-7B (MHA) and
 Qwen2-0.5B (GQA, qkv bias, tied embeddings).
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -335,3 +336,176 @@ def test_split_entry_points_match_reference(arch):
     with pytest.raises(ValueError, match="mode"):
         ttf.run_periods(cfgt, tparams["layers"], 0, 1, x, seg_pools, _t(dtables),
                         _t(lens)[:, None], mode="full")
+
+
+# ------------------------------------------------- contiguous caches (item 9)
+def _filled_cache(cfg, b, cap, fill, seed):
+    """A reference cache whose slots 0..fill[i]-1 of row i hold random K/V at
+    positions 0..fill[i]-1 (a full cache filled chunk by chunk), the rest
+    empty (-1)."""
+    hd = cfg.resolved_head_dim
+    c = jax.tree.map(np.asarray, jl.KVCache.init(b, cap, cfg.num_kv_heads, hd, jnp.float32))
+    rng = np.random.default_rng(seed)
+    c = {k: np.array(v) for k, v in c.items()}
+    for i, n in enumerate(fill):
+        c["k"][i, :n] = rng.standard_normal((n, cfg.num_kv_heads, hd))
+        c["v"][i, :n] = rng.standard_normal((n, cfg.num_kv_heads, hd))
+        c["pos"][i, :n] = np.arange(n)
+    return c
+
+
+def _assert_cache(got, want, tol=None):
+    """``pos`` exactly; K/V exactly, or within ``tol`` when they come out of
+    projections computed by both frameworks."""
+    np.testing.assert_array_equal(got["pos"].numpy(), np.asarray(want["pos"]))
+    for kv in ("k", "v"):
+        if tol is None:
+            np.testing.assert_array_equal(got[kv].numpy(), np.asarray(want[kv]))
+        else:
+            np.testing.assert_allclose(got[kv].numpy(), np.asarray(want[kv]), **tol)
+
+
+def test_write_kv_matches_reference_exactly():
+    """Full-cache and ring slots, with and without the padding mask."""
+    cfg = get_config("llama-2-7b").reduced()
+    rng = np.random.default_rng(20)
+    cache = _filled_cache(cfg, 2, 16, [3, 9], 21)
+    shape = (2, 5, cfg.num_kv_heads, cfg.resolved_head_dim)
+    k, v = rng.standard_normal(shape).astype(np.float32), rng.standard_normal(shape).astype(np.float32)
+    pos = np.array([[3, 4, 5, 6, 7], [20, 21, 22, 23, 24]], np.int32)  # row 1 wraps
+    valid = np.array([[1, 1, 0, 1, 1], [1, 0, 1, 1, 0]], bool)
+    for vm in (None, valid):
+        want = jl.write_kv(jax.tree.map(jnp.asarray, cache), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(pos), None if vm is None else jnp.asarray(vm))
+        tc = bridge.to_torch(cache)
+        got = tl.write_kv(tc, _t(k), _t(v), _t(pos), None if vm is None else _t(vm))
+        assert got is tc
+        _assert_cache(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cached_attention_matches_reference(arch):
+    """Prefill chunks through the flash attention (its plain version here)
+    and through the masked ``attend_cache``, shared and per-row offsets, a
+    padded row, then a decode step: outputs and caches."""
+    cfg, cfgt, params, tparams = _model(arch)
+    lp = jax.tree.map(lambda p: p[0], params["layers"]["0"]["mixer"])
+    tlp = jax.tree.map(lambda p: p[0], tparams["layers"]["0"]["mixer"])
+    rng = np.random.default_rng(22)
+    length = 16
+    for offs, lens in (([24, 24], None), ([24, 10], [16, 9])):
+        cache = _filled_cache(cfg, 2, 64, offs, 23)
+        x = rng.standard_normal((2, length, cfg.d_model)).astype(np.float32)
+        pos = (np.asarray(offs)[:, None] + np.arange(length)).astype(np.int32)
+        valid = None if lens is None else np.arange(length)[None, :] < np.asarray(lens)[:, None]
+        want, wcache = jl.cached_attention(
+            cfg, lp, jnp.asarray(x), jax.tree.map(jnp.asarray, cache), jnp.asarray(pos),
+            None if valid is None else jnp.asarray(valid))
+        real = np.ones_like(pos, bool) if valid is None else valid
+        for q_offsets in (offs, None):  # flash form, then the masked form
+            got, gcache = tl.cached_attention(
+                cfgt, tlp, _t(x), bridge.to_torch(cache), _t(pos),
+                None if valid is None else _t(valid), q_offsets)
+            np.testing.assert_allclose(got.numpy()[real], np.asarray(want)[real], **LAYER_TOL)
+            _assert_cache(gcache, wcache, LAYER_TOL)
+        # the flash form's precondition: slots 0 .. off + L - 1 hold positions
+        # 0 .. off + L - 1 (the padded row's tail is never read by a real row)
+        for i, o in enumerate(offs):
+            n = o + (length if lens is None else lens[i])
+            np.testing.assert_array_equal(gcache["pos"].numpy()[i, :n], np.arange(n))
+    xd = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    dpos = np.array([[offs[0] + length], [offs[1] + 3]], np.int32)
+    want, wcache = jl.cached_attention(cfg, lp, jnp.asarray(xd), wcache, jnp.asarray(dpos))
+    got, gcache = tl.cached_attention(cfgt, tlp, _t(xd), gcache, _t(dpos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+    _assert_cache(gcache, wcache, LAYER_TOL)
+    # attend_cache alone, with a sliding window and holes in the cache
+    wcfg = dataclasses.replace(cfg, sliding_window=8)
+    wcfgt = dataclasses.replace(cfgt, sliding_window=8)
+    holed = _filled_cache(cfg, 2, 32, [20, 12], 24)
+    holed["pos"][0, 5] = -1
+    q = rng.standard_normal((2, 3, cfg.num_heads, cfg.resolved_head_dim)).astype(np.float32)
+    qp = np.array([[17, 18, 19], [9, 10, 11]], np.int32)
+    want = jl.attend_cache(wcfg, jnp.asarray(q), jax.tree.map(jnp.asarray, holed), jnp.asarray(qp))
+    got = tl.attend_cache(wcfgt, _t(q), bridge.to_torch(holed), _t(qp))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+def _assert_caches(got, want, tol):
+    for pos in want:
+        _assert_cache({kv: got[pos][kv] for kv in ("k", "v", "pos")}, want[pos], tol)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_contiguous_entry_points_match_reference(arch):
+    """``forward_full`` with emitted caches, ``prefill_chunk`` chunk by chunk
+    (and a padded chunk), ``decode_step`` and ``run_segment``, against the
+    JAX model: logits and caches."""
+    cfg, cfgt, params, tparams = _model(arch)
+    toks = np.random.default_rng(25).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    want, wfull, _ = jtf.forward_full(cfg, params, jnp.asarray(toks), emit_caches=True,
+                                      max_seq=64)
+    got, gfull, aux = ttf.forward_full(cfgt, tparams, _t(toks), emit_caches=True, max_seq=64)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    _assert_caches(gfull, wfull, MODEL_TOL)
+
+    wc = jtf.init_caches(cfg, 2, 64)
+    gc = ttf.init_caches(cfgt, 2, 64)
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(np.asarray(a), b.numpy()), wc, gc)
+    for lo, hi in ((0, 16), (16, 40)):
+        want, wc = jtf.prefill_chunk(cfg, params, jnp.asarray(toks[:, lo:hi]), wc,
+                                     jnp.asarray([lo, lo], jnp.int32))
+        got, gc = ttf.prefill_chunk(cfgt, tparams, _t(toks[:, lo:hi]), gc, [lo, lo])
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+        for c in gc.values():
+            assert torch.equal(c["pos"][:, :, :hi], torch.arange(hi, dtype=torch.int32).expand(
+                c["pos"].shape[0], 2, hi))
+    _assert_caches(gc, wc, MODEL_TOL)
+    # chunked prefill ends where the whole-sequence forward does
+    np.testing.assert_allclose(got.numpy(), ttf.forward_full(cfgt, tparams, _t(toks))[0][:, -1]
+                               .numpy(), **MODEL_TOL)
+
+    last = toks[:, -1]
+    lens = np.array([40, 40], np.int32)
+    seg_caches = bridge.to_torch(bridge.to_numpy(gc))
+    want, wc2 = jtf.decode_step(cfg, params, jnp.asarray(last), wc, jnp.asarray(lens))
+    got, gc = ttf.decode_step(cfgt, tparams, _t(last), gc, _t(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    _assert_caches(gc, wc2, MODEL_TOL)
+    # the same decode, segment by segment, on both sides
+    wx = jtf.embed(cfg, params, jnp.asarray(last)[:, None])
+    x = ttf.embed(cfgt, tparams, _t(last)[:, None])
+    for seg in range(ttf.num_segments(cfgt)):
+        wx, wc = jtf.run_segment(cfg, params, seg, wx, wc, mode="decode",
+                                 positions=jnp.asarray(lens[:, None]))
+        x, out = ttf.run_segment(cfgt, tparams, seg, x, seg_caches, mode="decode",
+                                 positions=_t(lens)[:, None])
+        assert out is seg_caches
+        np.testing.assert_allclose(x.numpy(), np.asarray(wx), **MODEL_TOL)
+    _assert_caches(seg_caches, wc, MODEL_TOL)
+    assert torch.equal(ttf.lm_head(cfgt, tparams, x)[:, 0], got)
+
+    # a padded chunk: row 1 has 5 real tokens of 8
+    wp = jtf.init_caches(cfg, 2, 64)
+    gp = ttf.init_caches(cfgt, 2, 64)
+    n = np.array([8, 5], np.int32)
+    want, wp = jtf.prefill_chunk(cfg, params, jnp.asarray(toks[:, :8]), wp,
+                                 jnp.asarray([0, 0], jnp.int32), lengths=jnp.asarray(n))
+    got, gp = ttf.prefill_chunk(cfgt, tparams, _t(toks[:, :8]), gp, [0, 0], lengths=_t(n))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    _assert_caches(gp, wp, MODEL_TOL)
+
+
+def test_forward_full_beyond_the_blockwise_threshold_matches_reference():
+    """T = 1100 > 1024: the reference switches to its blockwise attention;
+    the port runs the same flash attention at every length."""
+    cfg, cfgt, params, tparams = _model("llama-2-7b")
+    assert 1100 > jl.BLOCKWISE_THRESHOLD
+    toks = np.random.default_rng(26).integers(0, cfg.vocab_size, (1, 1100)).astype(np.int32)
+    want, wc, _ = jtf.forward_full(cfg, params, jnp.asarray(toks), emit_caches=True)
+    got, gc, _ = ttf.forward_full(cfgt, tparams, _t(toks), emit_caches=True)
+    np.testing.assert_allclose(got.numpy()[:, -64:], np.asarray(want)[:, -64:], **MODEL_TOL)
+    # keys roped at angles up to 1100 rad: fp32 cos/sin differ by ~1e-5 per
+    # unit of magnitude between the frameworks (as in the RoPE test above)
+    _assert_caches(gc, wc, dict(atol=2e-4, rtol=1e-5))
