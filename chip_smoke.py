@@ -10,9 +10,12 @@ toolkit's ``nvcc`` and the repository's sources next to this file.  It
 imports nothing of JAX or of the JAX package ``repro``.  Phases, in order;
 any failure exits non-zero before the result lines:
 
-1. Device: the card's name and power limit, TF32 off, kernel build time.
+1. Device: the card's name and power limit, TF32 off, kernel build time,
+   and ptxas's registers, spills and static shared memory of every kernel
+   instantiation (a bf16 tensor-core kernel that spills fails).
 2. Each hand-written kernel against its plain PyTorch version on the card,
-   at fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B attention shapes.
+   at fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B attention shapes,
+   with cases at the tensor-core kernels' 16-row and 64-key edges.
 3. Llama-2-7B at full width (bf16, 32 layers, random weights from a seed)
    served through ``repro_torch.launch.serve.run_real`` on the fused path:
    online streams arrive while an offline batch job runs on a pool small
@@ -42,7 +45,9 @@ any failure exits non-zero before the result lines:
    time, measured on the heaviest call of its path (captured while it ran;
    the kernel must agree with its plain version there), and for attention
    the same at contexts of 2-4 thousand tokens (``long_context``; for
-   flash attention ``forward_full``'s 2048 and 4096 tokens).
+   flash attention ``forward_full``'s 2048 and 4096 tokens), and its ptxas
+   report per instantiation with the bf16 kernels' dynamic shared memory
+   (``build``).
 6. Calibration: ``RealEngine.calibrate()`` on a bf16 engine of each path
    (``--calibrate``), the fitted profile, and phase 3's workload served on
    each calibrated engine: measured against predicted seconds per
@@ -51,7 +56,9 @@ Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -63,8 +70,14 @@ ROOT = Path(__file__).resolve().parent
 
 # Kernel vs plain version on the card.  fp32: both sum in fp32 in another
 # order (errors of a few 1e-6 on outputs of magnitude <= 4).  bf16: both
-# compute in fp32 from the same bf16 inputs and round the output once, so
-# they can differ by one bf16 step of an output <= 4, i.e. 2**-6.
+# take the same bf16 inputs and compute scores, the softmax and every sum in
+# fp32; the kernels (tensor cores) also round the probabilities to bf16
+# before P V, relative to the running row max, where the plain version
+# keeps them fp32, and both round the output once.  One bf16 step of an
+# output <= 4 is 2**-6; the probabilities' rounding adds at most 2**-9 of
+# the weighted mean of |v| and mostly cancels over the keys:
+# tests/test_torch_kernels.py emulates the kernels' arithmetic on the CPU
+# and finds it well inside this bound on cases shaped like phase 2's.
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=2**-6, rtol=2**-7)}
 # A greedy token is trusted only if its top-1 minus top-2 logit exceeds
 # this: two batch compositions run different cuBLAS reductions, which move
@@ -94,6 +107,59 @@ def nvidia_smi() -> str:
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi failed: {e}"
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+# ------------------------------------------------------------- build report
+def kernel_name(mangled: str) -> str:
+    """``ns::name<args>`` of a mangled kernel in an anonymous namespace, as
+    ``name<float, 128>`` or ``name<128>``; the mangled name if it is not
+    one."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    i = m.end() + int(m[1])
+    m = re.match(r"\d+", mangled[i:])
+    if not m:
+        return mangled
+    n, i = int(m[0]), i + m.end()
+    name, rest = mangled[i:i + n], mangled[i + n:]
+    if not rest.startswith("I") or "EE" not in rest:
+        return name
+    targs = rest[1:rest.index("EE") + 1]
+    args = ["float"] if targs.startswith("f") else (
+        ["bf16"] if targs.startswith("13__nv_bfloat16") else [])
+    args += re.findall(r"Li(\d+)E", targs)
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_report(text: str) -> dict:
+    """Per kernel instantiation in one source's ``ptxas -v`` output: its
+    registers, spill stores and loads (bytes) and static shared memory."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(kernel_name(m[1]), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m[1]) if m else 0
+    return out
+
+
+def smem_bytes(build, name: str, *args: int) -> int:
+    """Dynamic shared memory of one block, from ``csrc/<name>.cu``'s own
+    ``<name>_smem_bytes``."""
+    fn = getattr(build.load(name), f"{name}_smem_bytes")
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_longlong
+    return int(fn(*args))
 
 
 # --------------------------------------------------------------------- timing
@@ -149,6 +215,19 @@ def attention_case(torch, dtype, h, hkv, d, softcap, seed,
     return q, kp, vp, tables, q_pos, kvl, float(softcap)
 
 
+# ragged_paged_attention cases of phase 2 (attention_case arguments); each
+# ends with a padded sequence (kv_len = 0) whose rows must be exactly 0.
+# Rounds of the tensor-core kernel are 64 keys (4 pages of 16).
+RAGGED_CASES = {
+    "mixed batch": {},
+    "Qmax * G off 16 rows": dict(q_lens=(3, 1, 2, 0), kv_lens=(40, 17, 70, 0), qmax=3),
+    "kv_len inside a round": dict(q_lens=(1, 5, 1, 0), kv_lens=(101, 101, 64, 0), qmax=5),
+    "chunk across two rounds": dict(q_lens=(32, 20, 0), kv_lens=(80, 70, 0), qmax=32),
+    "warp tiles of padded slots only": dict(q_lens=(1, 48, 2, 0), kv_lens=(200, 48, 130, 0),
+                                            qmax=48),
+}
+
+
 def decode_case(torch, dtype, h, hkv, d, softcap, seed,
                 seq_lens=(163, 50, 16, 300, 1, 0, 64, 33), hole=6):
     """A decode batch as the split path builds it: one query per sequence,
@@ -183,6 +262,11 @@ FLASH_CASES = [
     ("Tq/Tk off the tile size", 1, 130, 300, True, 0, 170),
     ("Tq = 1", 2, 1, 300, True, 0, 299),
     ("rows that keep no key", 1, 8, 64, False, 16, 100),
+    # the tensor-core kernel's 16-row warp tiles and key splits: Tq of one,
+    # just over one and just under two warp tiles behind a q_offset, Tk one
+    # short of and one past a 64-key tile
+    *((f"Tq = {tq} behind a q_offset, Tk = {tk}", 2, tq, tk, True, 0, tk - tq)
+      for tq in (16, 17, 31) for tk in (63, 65)),
 ]
 
 
@@ -234,16 +318,21 @@ def check_kernels(torch, ops, rpa, cg, fa):
                     f"softcap={cap:g}: max_abs_err={err:.3e} seq_len=0 rows max={zero:g}")
                 if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
                     raise AssertionError(f"paged_attention disagrees ({dname}, {arch})")
-                q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d, cap, 1)
-                got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
-                want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                zero = got[-1].float().abs().max().item()
-                log(f"  ragged_paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} "
-                    f"softcap={cap:g}: max_abs_err={err:.3e} kv_len=0 rows max={zero:g}")
-                if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
-                    raise AssertionError(f"ragged_paged_attention disagrees ({dname}, {arch})")
+                for case, kw in RAGGED_CASES.items():
+                    q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d, cap,
+                                                                 1, **kw)
+                    got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
+                    want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl,
+                                                          logit_softcap=cap)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    zero = got[-1].float().abs().max().item()
+                    log(f"  ragged_paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} {case} "
+                        f"(Qmax={q.shape[1]}) softcap={cap:g}: max_abs_err={err:.3e} "
+                        f"kv_len=0 rows max={zero:g}")
+                    if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
+                        raise AssertionError(f"ragged_paged_attention disagrees ({dname}, {arch}, "
+                                             f"{case})")
             g = torch.Generator(device="cuda").manual_seed(2)
             pool = torch.randn((4, 33, 16, hkv, d), generator=g, device="cuda").to(dtype)
             ids = torch.tensor([5, 2, 32, 9, 31, 32, 32, 0], dtype=torch.int32, device="cuda")
@@ -847,6 +936,26 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
     return out
 
 
+def add_build_reports(build, builds, line, ragged_args):
+    """Each kernel's ptxas report per instantiation (``build``), with the
+    dynamic shared memory of a block of each bf16 tensor-core kernel: the
+    flash kernel's is fixed, the ragged kernel's at the main path's heaviest
+    call (its Qmax * G rows, page size and table width)."""
+    q, kp, _vp, tb = ragged_args[:4]
+    rows, page, m = q.shape[1] * (q.shape[2] // kp.shape[2]), kp.shape[1], tb.shape[1]
+    for entry in line:
+        name = entry["name"]
+        report = builds.get(name)
+        entry["build"] = report if report else "not built in this run"
+        for inst, r in (report or {}).items():
+            d = re.search(r"_tc_kernel<(\d+)>", inst)
+            if d and name == "flash_attention":
+                r["dynamic_smem"] = smem_bytes(build, name, 1, int(d[1]))
+            elif d and name == "ragged_paged_attention":
+                r["dynamic_smem"] = smem_bytes(build, name, 1, int(d[1]), rows, page, m)
+                r["dynamic_smem_at"] = {"rows": rows, "page": page, "table_width": m}
+
+
 def calibrated_serves(torch, serve_mod, uncalibrated):
     """Phase 6: calibrate a bf16 engine of each path, print its profile, and
     serve phase 3's workload on it; measured against predicted seconds per
@@ -907,10 +1016,15 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
-    for name, text in build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+    builds = {name: ptxas_report(text) for name, text in build.build_logs.items()}
+    for name, report in builds.items():
+        for inst, r in report.items():
+            log(f"    {name}: {inst}: {r}")
+    for name in ("flash_attention", "ragged_paged_attention"):  # the tensor-core kernels
+        spills = {inst: r for inst, r in builds.get(name, {}).items()
+                  if "_tc_kernel" in inst and (r.get("spill_stores") or r.get("spill_loads"))}
+        if spills:
+            raise AssertionError(f"{name}: bf16 tensor-core kernels spill registers: {spills}")
 
     log("[2] kernels vs their plain versions on the card")
     check_kernels(torch, ops, rpa, cg, fa)
@@ -983,6 +1097,7 @@ def main() -> int:
     log("[5] kernels at their paths' captured inputs")
     line = kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts,
                        full_launches, args, split_args, contiguous_args, spec, Timer(torch))
+    add_build_reports(build, builds, line, args["ragged_paged_attention"])
     del args, split_args, contiguous_args
     torch.cuda.empty_cache()
 

@@ -22,27 +22,51 @@
 // What bounds it on this card: causal prefill does 4 * D flops per kept
 // (query head, query, key) triple against reading q, k, v once; at a few
 // hundred tokens or more that is far above the ~295 flops per byte where
-// the H100's bf16 tensor cores, let alone its 67 TFLOP/s of fp32 FMA,
-// become the limit, so the bound is operations.  Short chunks (tens of
-// queries) are bound by the K/V bytes of the context they read instead.
+// the H100's bf16 tensor cores become the limit, so the bound is
+// operations.  Short chunks (tens of queries) are bound by the K/V bytes
+// of the context they read, and in practice by the latency of their few
+// key tiles in series.
 //
-// What the design does about that, simply: one block of 256 threads per
-// (64-row query tile, query head, batch); the tile's q stays in shared
-// memory, and K/V tiles of 64 keys stream through a two-stage ring filled
-// by 16-byte cp.async copies, the next tile's copies in flight while the
-// current one is computed.  The key loop starts at the window's first key
-// and stops after the tile's last causal key, so masked tiles cost
-// nothing, and the heaviest causal tiles are scheduled first.  Each thread
-// holds a 2 x 8 block of the 64 x 64 score tile and 2 rows x D/8 columns
-// of the fp32 accumulator in registers; the 8 lanes that share a row
-// reduce its max and sum with shuffles, and the probabilities go through
-// shared memory to the P V product.  All arithmetic is fp32 FMA on the
-// CUDA cores: tensor cores (mma.sync / wgmma) and TMA loads are later work.
+// bf16 (flash_tc_kernel): the tensor cores.  One block of 4 warps per
+// (64-row query tile, query head, batch); each warp holds 16 query rows as
+// mma.sync.m16n8k16 A-fragments (attention_tile.cuh), and K/V tiles of 64
+// keys stream through a two-stage ring of 16-byte cp.async copies, the next
+// tile in flight while the current one is multiplied.  S = Q K^T, the
+// online softmax and O += P V all stay in registers; P goes to bf16 once,
+// straight from the S registers.  The key loop runs from the window's first
+// key to the tile's last causal key and the heaviest causal tiles go first;
+// within a tile each warp multiplies only the 16-key chunks its own rows
+// keep, and computes masks only on chunks that straddle a causal, window
+// or Tk edge.  Short query tiles (rows <= 32, e.g. a 31-token chunk of the
+// contiguous serve) split each K/V tile's chunks among the block's warps
+// (16 rows: 4 ways, 32 rows: 2 ways) and merge their (m, l, O) in shared
+// memory at the end.  That was chosen over blocks of fewer rows because
+// such calls are few blocks (32 on 132 SMs) each walking a short serial
+// chain of K/V tiles: splitting a tile's keys among idle warps shortens
+// every step of the chain without reading K/V twice, where smaller row
+// tiles would make more blocks each read the same keys.  wgmma with TMA
+// tile loads, warp specialisation and sharing a K/V tile among a group's G
+// query heads are later work.
+//
+// fp32 (flash_kernel): the CUDA cores, kept as it is to hold the port
+// against the reference at fp32 (a TF32 product would change those
+// numbers).  One block of 256 threads per (64-row query tile, query head,
+// batch); q in shared memory, the same two-stage K/V ring; each thread
+// holds a 2 x 8 block of the 64 x 64 score tile and 2 rows x D/8 columns of
+// the accumulator in registers; the 8 lanes that share a row reduce its max
+// and sum with shuffles, and the probabilities go through shared memory to
+// the P V product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 namespace {
+
+using attn_tile::cp_async16;
+using attn_tile::cp_async_commit;
+using attn_tile::cp_async_wait;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 64;                             // query rows per block
@@ -62,27 +86,8 @@ __device__ __forceinline__ void load_vec(const float* p, float (&o)[4]) {
   o[3] = x.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&o)[8]) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store_vec(float* p, const float (&o)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-}
-
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&o)[8]) {
-  uint4 x;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(o[2 * i], o[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = x;
 }
 
 __device__ __forceinline__ float row_max(float v) {  // over the 8 lanes of a row
@@ -95,20 +100,6 @@ __device__ __forceinline__ float row_sum(float v) {
 #pragma unroll
   for (int o = 1; o < kLanesPerRow; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // A shared q, K or V row is D elements plus a 16-byte pad, so the 8 lanes
@@ -338,6 +329,165 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int tq
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bf16 kernel
+using bf16 = __nv_bfloat16;
+constexpr int kTcWarps = attn_tile::kWarps;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcRows = 16 * kTcWarps;        // query rows per block
+constexpr int kTcKeys = attn_tile::kTileKeys;  // keys per K/V tile
+
+// Shared memory: q [kTcRows][D + pad], then the K ring [2][kTcKeys][D + pad]
+// and the V ring [2][kTcKeys][D + pad]; after the key loop the rings hold
+// the split warps' partial (m, l, O).
+template <int D>
+__host__ __device__ constexpr size_t tc_smem_bytes() {
+  return (size_t)(kTcRows + 4 * kTcKeys) * attn_tile::row_stride<D>() * sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out, int tq, int tk,
+                    int h, int hkv, long long q_bstride, long long kv_bstride,
+                    int q_offset, int causal, int window, float scale, float softcap) {
+  using Tile = attn_tile::WarpTile<D>;
+  constexpr int S = attn_tile::row_stride<D>();
+  constexpr int kRowChunks = D / 8;  // 16-byte chunks per row
+  static_assert((kTcKeys * 4 * S * sizeof(bf16)) >=
+                    (kTcWarps - 1) * 16 * Tile::kPartStride * sizeof(float),
+                "the split warps' partials must fit in the K/V rings");
+  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = tile * kTcRows;
+  const int rows = min(kTcRows, tq - q0);  // real query rows of this tile
+
+  const attn_tile::WarpRole role(rows, warp);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + kTcRows * S;
+  bf16* v_s = k_s + 2 * kTcKeys * S;
+
+  // Keys any row of the tile keeps lie in [k_lo, k_hi).
+  int k_lo = 0, k_hi = tk;
+  if (causal) k_hi = min(tk, q_offset + q0 + rows);
+  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
+  const int t_lo = k_lo / kTcKeys;
+  const int t_hi = k_hi > k_lo ? (k_hi + kTcKeys - 1) / kTcKeys : t_lo;
+
+  const size_t q_tok = (size_t)h * D, kv_tok = (size_t)hkv * D;
+  const bf16* qb = q + b * q_bstride + (size_t)head * D;
+  const bf16* kb = k + b * kv_bstride + (size_t)kvh * D;
+  const bf16* vb = v + b * kv_bstride + (size_t)kvh * D;
+
+  // The tile's q rows (rows past Tq are zero); these copies join the first
+  // K/V group.
+  for (int e = tid; e < kTcRows * kRowChunks; e += kTcThreads) {
+    const int r = e / kRowChunks, c = e - r * kRowChunks;
+    bf16* dst = q_s + r * S + c * 8;
+    if (r < rows) {
+      cp_async16(dst, qb + (size_t)(q0 + r) * q_tok + c * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  // Every 16-byte copy of key tile t's K and V rows into its stage, then one
+  // commit (an empty group past the last tile).  V rows past Tk up to the
+  // next 16-key chunk are zeroed: P V multiplies them by p = 0.
+  auto fetch = [&](int t) {
+    if (t < t_hi) {
+      const int k0 = t * kTcKeys;
+      const int n = min(kTcKeys, tk - k0);
+      const int st = (t - t_lo) & 1;
+      bf16* ks = k_s + st * kTcKeys * S;
+      bf16* vs = v_s + st * kTcKeys * S;
+      const int nvec = n * kRowChunks;
+      for (int e = tid; e < 2 * nvec; e += kTcThreads) {
+        const int which = e >= nvec;  // 0: K, 1: V
+        const int r = (e - which * nvec) / kRowChunks;
+        const int c = (e - which * nvec) - r * kRowChunks;
+        const size_t off = (size_t)(k0 + r) * kv_tok + c * 8;
+        cp_async16((which ? vs : ks) + r * S + c * 8, (which ? vb : kb) + off);
+      }
+      const int pad = (((n + 15) & ~15) - n) * kRowChunks;
+      for (int e = tid; e < pad; e += kTcThreads) {
+        const int r = n + e / kRowChunks, c = e % kRowChunks;
+        *reinterpret_cast<uint4*>(vs + r * S + c * 8) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this lane's rows, lane / 4 and lane / 4 + 8 of the warp's 16, keep the
+  // keys in [lo, hi)
+  Tile w;
+  {
+    int lo[2], hi[2];
+    bool exists[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * role.rw + (lane >> 2) + 8 * i;
+      const int q_pos = q_offset + q0 + r;
+      exists[i] = role.active && r < rows;
+      lo[i] = window > 0 ? max(0, q_pos - window + 1) : 0;
+      hi[i] = causal ? min(tk, q_pos + 1) : tk;
+    }
+    w.set_rows(lo, hi, exists);
+  }
+
+  fetch(t_lo);
+  for (int t = t_lo; t < t_hi; ++t) {
+    fetch(t + 1);
+    cp_async_wait<1>();  // this thread's copies of tile t (and q) are done
+    __syncthreads();     // ...everyone's
+    if (role.active) {
+      if (t == t_lo) w.load_q(q_s + 16 * role.rw * S, S);
+      const int k0 = t * kTcKeys;
+      int c0 = role.c0, c1 = role.c1;
+      w.live_chunks(k0, c0, c1);
+      if (c0 < c1) {
+        const bool edge = !(k0 + 16 * c0 >= w.lo_max && k0 + 16 * c1 <= w.hi_min);
+        const int st = (t - t_lo) & 1;
+        w.tile(k_s + st * kTcKeys * S, v_s + st * kTcKeys * S, S, k0, c0, c1, edge,
+               scale, softcap);
+      }
+    }
+    __syncthreads();  // stage st is free for tile t + 2
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  attn_tile::merge_splits(w, role, reinterpret_cast<float*>(k_s));
+  if (!role.active || role.sp != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * role.rw + (lane >> 2) + 8 * i;
+    if (r < rows) w.store_row(i, out + (((size_t)b * tq + q0 + r) * h + head) * D);
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int tq,
+              int tk, int h, int hkv, long long q_bstride, long long kv_bstride,
+              int q_offset, int causal, int window, float scale, float softcap,
+              cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  static bool attribute_set = false;  // once per instantiation
+  if (smem > 48 * 1024 && !attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  dim3 grid((tq + kTcRows - 1) / kTcRows, h, b);
+  flash_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), tq, tk, h, hkv, q_bstride, kv_bstride, q_offset, causal,
+      window, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q (b, tq, h, d) and k, v (b, tk, hkv, d),
@@ -358,8 +508,22 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
                         q_offset, causal, window, scale, softcap, st)
   if (dtype == 0 && d == 64) FA_LAUNCH(float, 64);
   if (dtype == 0 && d == 128) FA_LAUNCH(float, 128);
-  if (dtype == 1 && d == 64) FA_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) FA_LAUNCH(__nv_bfloat16, 128);
 #undef FA_LAUNCH
+#define FA_LAUNCH_TC(DIM)                                                           \
+  return launch_tc<DIM>(q, k, v, out, b, tq, tk, h, hkv, q_bstride, kv_bstride, \
+                        q_offset, causal, window, scale, softcap, st)
+  if (dtype == 1 && d == 64) FA_LAUNCH_TC(64);
+  if (dtype == 1 && d == 128) FA_LAUNCH_TC(128);
+#undef FA_LAUNCH_TC
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block of the kernel that `dtype` and `d`
+// launch, in bytes (0 if there is none).
+extern "C" long long flash_attention_smem_bytes(int dtype, int d) {
+  if (dtype == 0 && d == 64) return (long long)smem_bytes<float, 64>();
+  if (dtype == 0 && d == 128) return (long long)smem_bytes<float, 128>();
+  if (dtype == 1 && d == 64) return (long long)tc_smem_bytes<64>();
+  if (dtype == 1 && d == 128) return (long long)tc_smem_bytes<128>();
+  return 0;
 }

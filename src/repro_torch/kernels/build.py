@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library for Hopper (``sm_90a``), loaded with
 ``ctypes``: no PyTorch headers are compiled, so a build takes seconds.
 Libraries go to ``src/repro_torch/build/`` (git-ignored), named by a hash
-of the source and the flags, so a build happens only when a source changed.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so a
+build happens only when one of them changed.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all.
 Nothing here runs when a module is imported: the first launch builds.
 """
@@ -42,7 +43,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of the source, of every header in
+    ``csrc/`` (any source may include any of them) and of the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

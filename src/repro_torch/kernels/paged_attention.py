@@ -74,6 +74,8 @@ def ragged_paged_attention(
         )
     if d not in HEAD_DIMS:
         raise ValueError(f"ragged_paged_attention: head dim {d} not in {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("ragged_paged_attention: q and the pools must be 16-byte aligned")
     if s > 65535 or hkv > 65535:
         raise ValueError("ragged_paged_attention: too many sequences or KV heads for the grid")
     out = torch.empty_like(q)

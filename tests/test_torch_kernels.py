@@ -5,6 +5,10 @@ The Pallas kernels run as ``tests/test_kernels.py`` runs them
 held against on the card — must agree with them on the same numpy inputs.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
+import importlib.util
+import shutil
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -353,3 +357,140 @@ def test_flash_attention_ref_rows_that_keep_no_key_are_zero():
     out = flash_attention_ref(q, k, v, causal=False, sliding_window=16, q_offset=75)
     assert out[0, :4].abs().amax(dim=(1, 2)).min() > 0
     assert torch.equal(out[0, 4:], torch.zeros_like(out[0, 4:]))
+
+
+# ------------------------------------------------------- kernel build cache
+def test_build_hash_follows_every_header(tmp_path, monkeypatch):
+    """A library is named by a hash of its source, of every ``csrc/*.cuh``
+    and of the flags: editing a shared header, or adding one, moves every
+    library, so no stale build is loaded; editing one source moves only its
+    own.  Needs no nvcc: only the names are computed."""
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+
+    def paths():
+        return {name: build._lib_path(name) for name in build.SOURCES}
+
+    before = paths()
+    assert all(p.parent == build.BUILD_DIR for p in before.values())
+    header = csrc / "attention_tile.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    edited = paths()
+    assert all(edited[n] != before[n] for n in build.SOURCES)
+    source = csrc / "checkpoint_gather.cu"
+    source.write_bytes(source.read_bytes() + b"\n")
+    again = paths()
+    assert again["checkpoint_gather"] != edited["checkpoint_gather"]
+    assert all(again[n] == edited[n] for n in build.SOURCES if n != "checkpoint_gather")
+    (csrc / "another.cuh").write_text("#pragma once\n")
+    assert all(p != again[n] for n, p in paths().items())
+
+
+# ------------------------------------- the tensor-core kernels' arithmetic
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHIP_SMOKE = _chip_smoke()
+# what chip_smoke.py holds the bf16 kernels to on the card
+BF16_TOL = CHIP_SMOKE.TOL["bfloat16"]
+
+
+def _tensor_core_attention(q, k, v, keep, softcap=0.0, tile=64):
+    """Test-only emulation of the bf16 tensor-core kernels' arithmetic
+    (csrc/attention_tile.cuh): bf16 q, k, v; fp32 scores with the scale,
+    softcap and mask; an online softmax over tiles of 64 keys with fp32 max
+    and sum; the probabilities rounded to bf16 before P V; fp32 sums; O / l
+    with a safe l (a row that keeps no key is 0); the output rounded to
+    bf16.  q (B, Tq, H, D), k and v (B, Tk, Hkv, D), keep (B, Tq, Tk)."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, tq, hkv, h // hkv, d)
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, hkv, h // hkv, tq), float("-inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, hkv, h // hkv, tq, d))
+    for k0 in range(0, tk, tile):
+        s = torch.einsum("bthgd,bshd->bhgts", qg, kf[:, k0:k0 + tile]) * d**-0.5
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        s = s.masked_fill(~keep[:, None, None, :, k0:k0 + tile], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - mu)
+        p = torch.exp(s - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bhgts,bshd->bhgtd", p.bfloat16().float(), vf[:, k0:k0 + tile])
+        m = m_new
+    out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).bfloat16()
+
+
+def _bf16(shape, seed):
+    return torch.from_numpy(_rand(shape, seed)).bfloat16()
+
+
+@pytest.mark.parametrize("case", CHIP_SMOKE.FLASH_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_tensor_core_rounding_stays_inside_bf16_tol_flash(case, softcap):
+    """The flash kernel's bf16 arithmetic (P rounded to bf16 before P V)
+    against its plain version on chip_smoke.py's phase-2 flash cases, at
+    narrow heads: inside the bf16 tolerance the card holds it to."""
+    _, b, tq, tk, causal, window, q_offset = case
+    h, hkv, d = 4, 2, 64
+    q, k, v = _bf16((b, tq, h, d), 70), _bf16((b, tk, hkv, d), 71), _bf16((b, tk, hkv, d), 72)
+    keep = CHIP_SMOKE.flash_keep(torch, tq, tk, causal, window, q_offset)
+    got = _tensor_core_attention(q, k, v, keep.expand(b, tq, tk), softcap)
+    want = flash_attention_ref(q, k, v, causal=causal, sliding_window=window,
+                               q_offset=q_offset, logit_softcap=softcap)
+    print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def _attention_case_cpu(h, hkv, d, seed, q_lens=(32, 1, 9, 1, 1, 0),
+                        kv_lens=(32 + 131, 50, 9, 300, 1, 0), qmax=32, page=16):
+    """chip_smoke.attention_case's ragged batch, built on the CPU from
+    numpy: chunks at the tail of each context, padded slots at q_pos = 0,
+    -1 table entries past each sequence's pages."""
+    rng = np.random.default_rng(seed)
+    s = len(q_lens)
+    m = max(-(-kv // page) for kv in kv_lens) + 2
+    n = s * m + 1
+    q = _bf16((s, qmax, h, d), seed + 1)
+    kp, vp = _bf16((n, page, hkv, d), seed + 2), _bf16((n, page, hkv, d), seed + 3)
+    tables = rng.permutation(n - 1)[: s * m].reshape(s, m).astype(np.int32)
+    q_pos = np.zeros((s, qmax), np.int32)
+    for i, (ql, kv) in enumerate(zip(q_lens, kv_lens)):
+        tables[i, -(-kv // page):] = -1
+        q_pos[i, :ql] = np.arange(kv - ql, kv)
+    return (q, kp, vp, torch.from_numpy(tables), torch.from_numpy(q_pos),
+            torch.tensor(kv_lens, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", sorted(CHIP_SMOKE.RAGGED_CASES))
+@pytest.mark.parametrize("shape", [(4, 4, 128), (14, 2, 64)], ids=["G1", "G7"])
+def test_tensor_core_rounding_stays_inside_bf16_tol_ragged(case, shape):
+    """The ragged kernel's bf16 arithmetic against its plain version on
+    chip_smoke.py's phase-2 ragged batches (rounds of 64 keys over the
+    sequence's gathered pages), at the Llama-2-7B (G = 1, D = 128, fewer
+    heads) and Qwen2-0.5B (G = 7, D = 64) groupings."""
+    h, hkv, d = shape
+    q, kp, vp, tables, q_pos, kv_lens = _attention_case_cpu(
+        h, hkv, d, 80, **CHIP_SMOKE.RAGGED_CASES[case])
+    max_ctx = tables.shape[1] * kp.shape[1]
+    k, v = (tco.gather_paged(p, tables, max_ctx) for p in (kp, vp))
+    t = torch.arange(max_ctx)
+    keep = (t[None, None] <= q_pos[..., None]) & (t[None, None] < kv_lens[:, None, None])
+    got = _tensor_core_attention(q, k, v, keep)
+    want = tco.ragged_paged_attention_ref(q, kp, vp, tables, q_pos, kv_lens)
+    print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
