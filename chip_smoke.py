@@ -12,10 +12,13 @@ any failure exits non-zero before the result lines:
 
 1. Device: the card's name and power limit, TF32 off, kernel build time,
    and ptxas's registers, spills and static shared memory of every kernel
-   instantiation (a bf16 tensor-core kernel that spills fails).
+   instantiation (a bf16 tensor-core or split-merge kernel that spills
+   fails).
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B attention shapes,
-   with cases at the tensor-core kernels' 16-row and 64-key edges.
+   with cases at the tensor-core kernels' 16-row and 64-key edges, and
+   decode batches that the bf16 decode kernel cuts into several key splits
+   (``DECODE_CASES``; each logs its splits).
 3. Llama-2-7B at full width (bf16, 32 layers, random weights from a seed)
    served through ``repro_torch.launch.serve.run_real`` on the fused path:
    online streams arrive while an offline batch job runs on a pool small
@@ -23,8 +26,10 @@ any failure exits non-zero before the result lines:
    run.  Kernel launch counts are zeroed just before and read just after.
 3b. The same workload, model and pool on the split path
    (``--no-fused-batch``): prefill chunks batched, decodes through the
-   paged decode attention kernel, counted and profiled the same way; its
-   prefill and decode dispatches must not synchronise with the host.
+   paged decode attention kernel, counted and profiled the same way (the
+   profiled decode steps must run ``paged_tc_kernel``, not the CUDA-core
+   kernel); its prefill and decode dispatches must not synchronise with
+   the host.
 3c. The same workload on the contiguous path (``--backend contiguous``):
    per-request caches, every prefill chunk's attention through the flash
    attention kernel in every layer, decodes through the plain masked
@@ -41,13 +46,16 @@ any failure exits non-zero before the result lines:
    the last position's logits with the flash kernel in every layer against
    the same forward with the kernel's plain version, within FULL_TOL.
 5. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches,
-   error against the plain version, time, plain time, bound and library
-   time, measured on the heaviest call of its path (captured while it ran;
-   the kernel must agree with its plain version there), and for attention
-   the same at contexts of 2-4 thousand tokens (``long_context``; for
-   flash attention ``forward_full``'s 2048 and 4096 tokens), and its ptxas
-   report per instantiation with the bf16 kernels' dynamic shared memory
-   (``build``).
+   error against the plain version, time (``Timer``: device time alone)
+   and the host's enqueue time, plain time, bound and library time,
+   measured on the heaviest call of its path (captured while it ran; the
+   kernel must agree with its plain version there), and for attention the
+   same at contexts of 2-4 thousand tokens (``long_context``: Llama-2-7B,
+   and Qwen2-0.5B decodes; for flash attention ``forward_full``'s 2048 and
+   4096 tokens), and its ptxas report per instantiation with the bf16
+   kernels' dynamic shared memory (``build``).  The decode kernel adds its
+   key splits and split-merge launches; the gather, unchanged since it was
+   ported, is also timed by the Timer of earlier runs, as the control.
 6. Calibration: ``RealEngine.calibrate()`` on a bf16 engine of each path
    (``--calibrate``), the fitted profile, and phase 3's workload served on
    each calibrated engine: measured against predicted seconds per
@@ -165,27 +173,79 @@ def smem_bytes(build, name: str, *args: int) -> int:
 # --------------------------------------------------------------------- timing
 class Timer:
     """CUDA-event timing of single launches with the 50 MB L2 flushed
-    before each one (a caller finds these pages cold); the median of
-    ``reps`` launches after ``warm`` untimed ones."""
+    before each one (a caller finds these pages cold): the median of
+    ``reps`` launches after ``warm`` untimed ones, in ms.
 
-    def __init__(self, torch):
-        self.torch = torch
+    After the flush the stream spins on the device (``torch.cuda._sleep``)
+    for twice the host's longest enqueue of the call in the warm-up, so the
+    device reaches the start event only once the host has queued the call
+    and the end event behind it: the pair times device work, not the host.
+    A repetition whose start event had already passed when the host
+    finished queueing is run again with a spin twice as long (up to 5
+    times; ``late`` counts those that still were).  ``enqueue_ms`` is the
+    median host time, over the last ``ms`` call's repetitions, of queueing
+    the call: start event to end event.  ``device_wait=False`` leaves the spin out, as the Timer of
+    earlier runs did (a slow host's enqueue is then counted): the control.
+    Nothing touches CUDA before the first ``ms`` call."""
+
+    def __init__(self, torch, device_wait: bool = True):
+        self.torch, self.device_wait = torch, device_wait
+        self.flush = None
+        self.cycles_per_ms = 0.0
+        self.enqueue_ms = 0.0
+        self.late = 0
+
+    def _setup(self):
+        torch = self.torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        a.record()
+        torch.cuda._sleep(1 << 22)
+        b.record()
+        b.synchronize()
+        self.cycles_per_ms = (1 << 22) / a.elapsed_time(b)
 
     def ms(self, fn, reps: int = 25, warm: int = 3) -> float:
         torch = self.torch
-        for _ in range(warm):
+        if self.flush is None:
+            self._setup()
+        slowest = 0.0
+        for i in range(warm):
+            t0 = time.perf_counter()
             fn()
-        times = []
+            if i or warm == 1:  # the first call may pay one-time costs
+                slowest = max(slowest, time.perf_counter() - t0)
+        wait_ms = min(2e3 * slowest + 0.05, 50.0)
+        times, enqueue = [], []
         for _ in range(reps):
-            self.flush.zero_()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
+            for attempt in range(6):
+                self.flush.zero_()
+                if self.device_wait:
+                    torch.cuda._sleep(int(wait_ms * self.cycles_per_ms))
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                a.record()
+                fn()
+                b.record()
+                t1 = time.perf_counter()
+                late = self.device_wait and a.query()
+                b.synchronize()
+                if not late:
+                    break
+                if attempt == 5:
+                    self.late += 1
+                wait_ms *= 2
             times.append(a.elapsed_time(b))
+            enqueue.append((t1 - t0) * 1e3)
+        self.enqueue_ms = statistics.median(enqueue)
         return statistics.median(times)
+
+
+def timed(timer, fn, **kw) -> dict:
+    """``{"ms": ..., "enqueue_ms": ...}`` of ``fn`` under ``timer``."""
+    ms = timer.ms(fn, **kw)
+    return {"ms": ms, "enqueue_ms": timer.enqueue_ms}
 
 
 # ------------------------------------------------------------ phase 2 inputs
@@ -229,13 +289,13 @@ RAGGED_CASES = {
 
 
 def decode_case(torch, dtype, h, hkv, d, softcap, seed,
-                seq_lens=(163, 50, 16, 300, 1, 0, 64, 33), hole=6):
+                seq_lens=(163, 50, 16, 300, 1, 0, 64, 33), hole=(6, 0), page=16):
     """A decode batch as the split path builds it: one query per sequence,
-    -1 table entries past each sequence's pages, a seq_len = 0 row, lengths
-    at exact page multiples (16, 64), and for row ``hole`` a -1 entry inside
-    its context (masked by both versions; the engine never builds one)."""
+    -1 table entries past each sequence's pages.  The default has a
+    seq_len = 0 row, lengths at exact page multiples (16, 64), and -- in
+    row ``hole[0]`` at page ``hole[1]`` -- a -1 entry inside a context
+    (masked by both versions; the engine never builds one)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    page = 16
     b = len(seq_lens)
     m = max(-(-n // page) for n in seq_lens) + 2
     n = b * m + 1
@@ -247,9 +307,31 @@ def decode_case(torch, dtype, h, hkv, d, softcap, seed,
     for i, sl in enumerate(seq_lens):
         tables[i, -(-sl // page):] = -1
     if hole is not None:
-        tables[hole, 0] = -1
+        tables[hole] = -1
     lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
     return q, kp, vp, tables, lens, float(softcap)
+
+
+# paged_attention cases of phase 2 (decode_case arguments), each with a
+# seq_len = 0 row that must come out exactly 0 and a -1 entry inside a
+# context: a serving batch; long contexts, which the bf16 kernel cuts into
+# 3 (Llama-2-7B) or 4 (Qwen2-0.5B) key splits, with splits past the first
+# row's seq_len and the -1 entry inside a later split; and pages of 24
+# tokens, so rounds of 64 keys straddle pages.
+DECODE_CASES = {
+    "serving batch": {},
+    "long contexts": dict(seq_lens=(384, 1000, 0), hole=(1, 40)),
+    "page 24": dict(seq_lens=(75, 0, 700, 72), hole=(2, 5), page=24),
+}
+
+
+def decode_splits_of(torch, rpa, q, kp, tb):
+    """(splits, keys per split) that ``paged_attention`` uses on these
+    inputs: the host's choice from shapes for bf16; fp32 does not split."""
+    if q.dtype != torch.bfloat16:
+        return 1, tb.shape[1] * kp.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return rpa.decode_splits(q.shape[0], kp.shape[2], tb.shape[1] * kp.shape[1], sms)
 
 
 # flash_attention cases of phase 2: (name, B, Tq, Tk, causal, window, q_offset).
@@ -308,16 +390,24 @@ def check_kernels(torch, ops, rpa, cg, fa):
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
             for cap in (0.0, 30.0):
-                q, kp, vp, tb, lens, cap = decode_case(torch, dtype, h, hkv, d, cap, 4)
-                got = rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)
-                want = rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                zero = got[lens == 0].float().abs().max().item()
-                log(f"  paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} "
-                    f"softcap={cap:g}: max_abs_err={err:.3e} seq_len=0 rows max={zero:g}")
-                if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
-                    raise AssertionError(f"paged_attention disagrees ({dname}, {arch})")
+                for case, kw in DECODE_CASES.items():
+                    q, kp, vp, tb, lens, cap = decode_case(torch, dtype, h, hkv, d, cap, 4, **kw)
+                    merges = rpa.paged_attention.merge_launches
+                    got = rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)
+                    merges = rpa.paged_attention.merge_launches - merges
+                    want = rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    zero = got[lens == 0].float().abs().max().item()
+                    splits, keys = decode_splits_of(torch, rpa, q, kp, tb)
+                    log(f"  paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} {case} "
+                        f"(seq_lens={lens.tolist()} page={kp.shape[1]} table={tb.shape[1]} "
+                        f"splits={splits} of {keys} keys, merges={merges}) softcap={cap:g}: "
+                        f"max_abs_err={err:.3e} seq_len=0 rows max={zero:g}")
+                    if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
+                        raise AssertionError(f"paged_attention disagrees ({dname}, {arch}, {case})")
+                    if merges != (splits > 1):
+                        raise AssertionError(f"paged_attention: {merges} merges for {splits} splits")
                 for case, kw in RAGGED_CASES.items():
                     q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d, cap,
                                                                  1, **kw)
@@ -507,6 +597,7 @@ def run_serve(torch, ops, serve_mod, tf, argv):
         ops.reset_launch_counts()
         res = serve(serve_mod, argv)
         counts = ops.launch_counts()
+        counts["paged_attention merges"] = ops.KERNELS["paged_attention"].merge_launches
     finally:
         for name, cap in caps.items():
             setattr(ops, name, cap.fn)
@@ -627,9 +718,10 @@ def profile_steps(torch, eng, steps: int = 6):
     offline requests (64-token prompts) decoding: ``steps`` steps timed
     without the profiler, then ``steps`` more under ``torch.profiler``.
     Prints the device-busy time per step over both step times (the
-    profiler stretches a step) and the kernels by device time.
-    Informational: a profiler that cannot trace the card is reported, not
-    fatal."""
+    profiler stretches a step) and the kernels by device time: the ten
+    largest and every kernel of the port.  Returns the rows (device us,
+    calls, name) per step, or None where the profiler cannot trace the
+    card: that is reported, not fatal."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -661,15 +753,38 @@ def profile_steps(torch, eng, steps: int = 6):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
     except Exception as e:  # noqa: BLE001 -- a measurement, not the port
         log(f"  profiler unavailable: {e!r}")
-        return
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
+        return None
+    rows = sorted(((us / steps, n // steps, name) for us, n, name in rows if us > 0),
+                  reverse=True)
+    if not rows:
+        log("  profiler unavailable: no device time in its trace")
+        return None
+    busy = sum(r[0] for r in rows) * steps / 1e6
     log(f"  decode steps: {plain * 1e3 / steps:.2f} ms per step without the profiler, "
         f"{wall * 1e3 / steps:.2f} ms with it (host clock); device busy "
         f"{busy * 1e3 / steps:.2f} ms per step = {busy / plain:.1%} of an unprofiled step "
         f"({busy / wall:.1%} of a profiled one)")
-    for us, n, name in rows[:10]:
-        log(f"    {us / steps / 1e3:8.3f} ms/step  {n // steps:5d} calls/step  {name[:90]}")
+    for i, (us, n, name) in enumerate(rows):
+        if i < 10 or "(anonymous namespace)::" in name:
+            log(f"    {us / 1e3:8.3f} ms/step  {n:5d} calls/step  {name[:90]}")
+    return rows
+
+
+def check_split_decode_kernel(rows, cfg):
+    """Phase 3b: the profiled split decode steps ran the bf16 tensor-core
+    decode kernel and not the CUDA-core one (skipped where the profiler
+    could not trace the card; the serve's launch count, exact, is checked
+    in ``run_serve``)."""
+    if rows is None:
+        return
+    d = cfg.resolved_head_dim
+    tc = [(us, n) for us, n, name in rows if f"paged_tc_kernel<{d}>" in name]
+    old = [name for _us, _n, name in rows if "decode_kernel" in name]
+    if not tc or old:
+        raise AssertionError(f"split decode step: paged_tc_kernel<{d}> rows {tc}, "
+                             f"CUDA-core decode kernels {old}")
+    log(f"  split decode step: paged_tc_kernel<{d}> {tc[0][1]} calls and {tc[0][0] / 1e3:.3f} ms "
+        f"per step ({cfg.num_layers} layers), no decode_kernel")
 
 
 # ------------------------------------------------------------------- phase 5
@@ -697,7 +812,8 @@ def attention_entry(torch, rpa, args, spec, timer):
     bound, by = attention_bound(torch, q, kp, tb, qp, kvl, PEAK_FLOPS[dname], spec.hbm_bw)
     return {
         "max_abs_err": err,
-        "ms": timer.ms(lambda: rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)),
+        **timed(timer, lambda: rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl,
+                                                          logit_softcap=cap)),
         "plain_ms": timer.ms(lambda: rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)),
         "bound_ms": bound, "bound_by": by,
         "shape": {"q": list(q.shape), "pool": list(kp.shape), "tables": list(tb.shape),
@@ -706,8 +822,9 @@ def attention_entry(torch, rpa, args, spec, timer):
 
 
 def decode_entry(torch, rpa, args, spec, timer):
-    """Time, plain time and bound of one decode attention call; raises if
-    the kernel disagrees with its plain version on these inputs."""
+    """Time, plain time and bound of one decode attention call, and the key
+    splits it runs; raises if the kernel disagrees with its plain version on
+    these inputs."""
     q, kp, vp, tb, lens, cap = args
     dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
     got = rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)
@@ -717,9 +834,10 @@ def decode_entry(torch, rpa, args, spec, timer):
         raise AssertionError(f"paged_attention disagrees at {tuple(q.shape)} "
                              f"seq_lens={lens.tolist()}: max_abs_err={err:.3e}")
     bound, by = decode_bound(torch, q, kp, tb, lens, PEAK_FLOPS[dname], spec.hbm_bw)
+    splits, keys = decode_splits_of(torch, rpa, q, kp, tb)
     return {
-        "max_abs_err": err,
-        "ms": timer.ms(lambda: rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)),
+        "max_abs_err": err, "splits": splits, "split_keys": keys,
+        **timed(timer, lambda: rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)),
         "plain_ms": timer.ms(lambda: rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)),
         "bound_ms": bound, "bound_by": by,
         "shape": {"q": list(q.shape), "pool": list(kp.shape), "tables": list(tb.shape),
@@ -728,23 +846,29 @@ def decode_entry(torch, rpa, args, spec, timer):
 
 
 def long_context_entries(torch, rpa, spec, timer):
-    """Both attention kernels on the same long-context inputs: the ragged
-    kernel on every ``LONG_CASES`` batch, the decode kernel on the decode
-    batch recast as q (B, H, D) and seq_lens = kv_lens."""
-    ragged = []
-    for case, kw in LONG_CASES.items():
-        args = attention_case(torch, torch.bfloat16, 32, 32, 128, 0.0, 3, **kw)
+    """Both paged attention kernels on the same long-context inputs: the
+    ragged kernel on every ``LONG_CASES`` batch at the Llama-2-7B shape and
+    on the decode batch at the Qwen2-0.5B shape (14 query heads on 2 KV
+    heads, D = 64), the decode kernel on both decode batches recast as
+    q (B, H, D) and seq_lens = kv_lens (at Qwen2-0.5B's 32 (sequence, KV
+    head) pairs it splits the keys)."""
+    ragged, decode = [], []
+    cases = [(case, kw, (32, 32, 128)) for case, kw in LONG_CASES.items()]
+    cases.append(("qwen2-0.5b decode", LONG_CASES["decode"], (14, 2, 64)))
+    for case, kw, (h, hkv, d) in cases:
+        args = attention_case(torch, torch.bfloat16, h, hkv, d, 0.0, 3, **kw)
+        lens = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
         entry = {"case": case, **attention_entry(torch, rpa, args, spec, timer)}
-        entry["shape"]["kv_lens"] = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
+        entry["shape"]["kv_lens"] = lens
         log(f"  ragged_paged_attention, {case}: {entry}")
         ragged.append(entry)
-        if case == "decode":
+        if kw["qmax"] == 1:
             q, kp, vp, tb, _qp, kvl, cap = args
             entry = {"case": case, **decode_entry(
                 torch, rpa, (q[:, 0].contiguous(), kp, vp, tb, kvl, cap), spec, timer)}
-            entry["shape"]["seq_lens"] = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
+            entry["shape"]["seq_lens"] = lens
             log(f"  paged_attention, {case}: {entry}")
-            decode = [entry]
+            decode.append(entry)
         del args
     return ragged, decode
 
@@ -811,7 +935,7 @@ def flash_entry(torch, fa, args, spec, timer):
     lib = sdpa_call(torch, q, k, v, kw)
     return {
         "max_abs_err": err,
-        "ms": timer.ms(lambda: fa.flash_attention(q, k, v, **kw)),
+        **timed(timer, lambda: fa.flash_attention(q, k, v, **kw)),
         "plain_ms": timer.ms(lambda: fa.flash_attention_ref(q, k, v, **kw), reps=5),
         "bound_ms": bound, "bound_by": by,
         "library_ms": None if lib is None else timer.ms(lib),
@@ -900,7 +1024,8 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:87",
-        "launches": split_counts["paged_attention"], **dmain,
+        "launches": split_counts["paged_attention"],
+        "merge_launches": split_counts["paged_attention merges"], **dmain,
         "library_ms": None, "shape": dshape, "long_context": long_decode,
     }]
     fmain = flash_entry(torch, fa, contiguous_args["flash_attention"], spec, timer)
@@ -927,7 +1052,9 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
         "source": "src/repro_torch/csrc/checkpoint_gather.cu",
         "replaces": "src/repro/kernels/kv_checkpoint.py:30",
         "launches": counts["checkpoint_gather"], "max_abs_err": err,
-        "ms": timer.ms(lambda: cg.checkpoint_gather(pool, ids)),
+        **timed(timer, lambda: cg.checkpoint_gather(pool, ids)),
+        # the control: the unchanged kernel under the Timer of earlier runs
+        "old_timer_ms": Timer(torch, device_wait=False).ms(lambda: cg.checkpoint_gather(pool, ids)),
         "plain_ms": timer.ms(lambda: cg.checkpoint_gather_ref(pool, ids)),
         "bound_ms": nbytes / spec.hbm_bw * 1e3, "bound_by": "bytes",
         "library_ms": timer.ms(lambda: pool.index_select(1, ids)),
@@ -936,13 +1063,14 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
     return out
 
 
-def add_build_reports(build, builds, line, ragged_args):
+def add_build_reports(build, builds, line, ragged_args, decode_args):
     """Each kernel's ptxas report per instantiation (``build``), with the
     dynamic shared memory of a block of each bf16 tensor-core kernel: the
-    flash kernel's is fixed, the ragged kernel's at the main path's heaviest
-    call (its Qmax * G rows, page size and table width)."""
+    flash kernel's is fixed, the ragged and decode kernels' at their paths'
+    heaviest calls (Qmax * G rows or G heads, page size, table width)."""
     q, kp, _vp, tb = ragged_args[:4]
     rows, page, m = q.shape[1] * (q.shape[2] // kp.shape[2]), kp.shape[1], tb.shape[1]
+    group, split_m = decode_args[0].shape[1] // decode_args[1].shape[2], decode_args[3].shape[1]
     for entry in line:
         name = entry["name"]
         report = builds.get(name)
@@ -954,6 +1082,9 @@ def add_build_reports(build, builds, line, ragged_args):
             elif d and name == "ragged_paged_attention":
                 r["dynamic_smem"] = smem_bytes(build, name, 1, int(d[1]), rows, page, m)
                 r["dynamic_smem_at"] = {"rows": rows, "page": page, "table_width": m}
+            elif d and name == "paged_attention":
+                r["dynamic_smem"] = smem_bytes(build, name, 1, int(d[1]), group, split_m)
+                r["dynamic_smem_at"] = {"group": group, "table_width": split_m}
 
 
 def calibrated_serves(torch, serve_mod, uncalibrated):
@@ -1020,11 +1151,12 @@ def main() -> int:
     for name, report in builds.items():
         for inst, r in report.items():
             log(f"    {name}: {inst}: {r}")
-    for name in ("flash_attention", "ragged_paged_attention"):  # the tensor-core kernels
+    for name in ("flash_attention", "ragged_paged_attention", "paged_attention"):
         spills = {inst: r for inst, r in builds.get(name, {}).items()
-                  if "_tc_kernel" in inst and (r.get("spill_stores") or r.get("spill_loads"))}
+                  if ("_tc_kernel" in inst or "merge_kernel" in inst)
+                  and (r.get("spill_stores") or r.get("spill_loads"))}
         if spills:
-            raise AssertionError(f"{name}: bf16 tensor-core kernels spill registers: {spills}")
+            raise AssertionError(f"{name}: bf16 kernels spill registers: {spills}")
 
     log("[2] kernels vs their plain versions on the card")
     check_kernels(torch, ops, rpa, cg, fa)
@@ -1034,6 +1166,8 @@ def main() -> int:
         timer = Timer(torch)
         long_context_entries(torch, rpa, spec, timer)
         flash_long_entries(torch, fa, spec, timer)
+        log(f"  Timer: {timer.late} repetitions reached their start event before the host "
+            "had queued the call")
         log(f"  card: {smi}; total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -1049,7 +1183,7 @@ def main() -> int:
                                               SERVE_ARGV + ["--no-fused-batch"])
     uncalibrated["split"] = iteration_figures(res["engine"])
     check_reads_nothing_back(torch, tf, res["engine"])
-    profile_steps(torch, res["engine"])
+    check_split_decode_kernel(profile_steps(torch, res["engine"]), res["cfg"])
     del res
     torch.cuda.empty_cache()
 
@@ -1095,9 +1229,13 @@ def main() -> int:
     full_launches = forward_full_check(torch, ops, fa, tf)
 
     log("[5] kernels at their paths' captured inputs")
+    timer = Timer(torch)
     line = kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts,
-                       full_launches, args, split_args, contiguous_args, spec, Timer(torch))
-    add_build_reports(build, builds, line, args["ragged_paged_attention"])
+                       full_launches, args, split_args, contiguous_args, spec, timer)
+    log(f"  Timer: device spin of {timer.cycles_per_ms:.0f} cycles per ms; {timer.late} "
+        "repetitions reached their start event before the host had queued the call")
+    add_build_reports(build, builds, line, args["ragged_paged_attention"],
+                      split_args["paged_attention"])
     del args, split_args, contiguous_args
     torch.cuda.empty_cache()
 

@@ -93,14 +93,15 @@ class HardwareSpec:
     iter_overhead: float = 0.002  # per-iteration dispatch/sync cost (s)
 
 
-# NVIDIA H100 (NVIDIA's data sheet): 989 TFLOP/s dense bf16 on both parts;
-# HBM3 at 3.35 TB/s on the SXM5 part, HBM2e at 2.0 TB/s on the PCIe part;
-# PCIe 5.0 x16 to the host.
+# NVIDIA H100 (NVIDIA's data sheet; dense rates, half the figures it gives
+# with sparsity): the SXM5 part 989 TFLOP/s bf16 (1979 with sparsity) and
+# HBM3 at 3.35 TB/s; the PCIe part 756 TFLOP/s bf16 (1513 with sparsity)
+# and HBM2e at 2.0 TB/s; both PCIe 5.0 x16 to the host.
 H100_SXM = HardwareSpec(
     name="h100-sxm", flops=989e12, hbm_bw=3.35e12, host_bw=64e9, ici_bw=450e9
 )
 H100_PCIE = HardwareSpec(
-    name="h100-pcie", flops=989e12, hbm_bw=2.0e12, host_bw=64e9, ici_bw=0.0
+    name="h100-pcie", flops=756e12, hbm_bw=2.0e12, host_bw=64e9, ici_bw=0.0
 )
 
 

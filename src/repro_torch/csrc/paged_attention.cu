@@ -12,8 +12,10 @@
 // version gives them -1e30, whose exp is exactly 0 next to a kept key), and
 // a row that keeps no key (seq_len = 0) comes out exactly 0, as the Pallas
 // kernel's safe divisor gives.  Only the pages below ceil(seq_len / page)
-// are visited; a negative table entry is never dereferenced.  GQA is
-// grouped KV-head-major: query head kvh * G + g reads KV head kvh.
+// are visited; a negative table entry is never used as a page index (the
+// fp32 kernel skips its page, the bf16 kernel reads page 0 in its place
+// and masks its keys).  GQA is grouped KV-head-major: query head
+// kvh * G + g reads KV head kvh.
 //
 // What bounds it on this card: it reads every K/V page up to each seq_len
 // once per KV head, plus q, the table entries and seq_lens, and writes the
@@ -22,19 +24,49 @@
 // tensor cores would be the limit.  So its bound is those bytes over the
 // HBM rate (3.35 TB/s).
 //
-// What the design does about that bound: one block per (KV head, sequence)
-// holds that head's G query rows, so the G query heads of a group read each
-// page once (the ragged kernel's 16-row tile would waste 15 of 16 rows at
-// G = 1).  Pages stream through a ring of kStages shared-memory stages with
-// 16-byte cp.async copies: all of a page's K and V copies are issued at
-// once, kStages - 1 pages ahead of the page being computed, so several pages
-// per block are in flight while the block computes.  Shared rows are padded
-// by 16 bytes so the dot products of neighbouring keys hit other banks.
-// Split-KV for long contexts with few (sequence, KV head) pairs, wgmma and
-// TMA page loads are later work.
+// bf16 (paged_tc_kernel, merge_kernel): one block of 4 warps per (KV head,
+// sequence, key split) on the tensor cores, through the warp tile that the
+// ragged and flash kernels share (attention_tile.cuh: mma.sync bf16, fp32
+// online softmax in registers, P rounded to bf16 before P V).  The tile's
+// 16 rows are the G query heads of the (sequence, KV head) -- G = 1 for
+// Llama-2-7B, 7 for Qwen2-0.5B; the rows past G are masked -- so each page
+// is read once for the whole group.  The sequence's table entries go to
+// shared memory once; keys then come in rounds of 64, every K and V row a
+// set of 16-byte cp.async copies issued one round ahead into a two-stage
+// ring, each key's page worked out inside the round (any page size).  The
+// block's warps split each round's four 16-key chunks and merge their
+// (m, l, O) in shared memory at the end (at G <= 16; 2 warps of rows and 2
+// ways at G <= 32, no split above).  A -1 table entry inside a context is
+// read as page 0, as the Pallas kernel reads it, and its keys are masked:
+// where a split has one, each round's keys are taken as runs between -1
+// entries, so the common path carries no per-key mask.  Every instruction
+// counts at serving shapes, where a block walks 2 or 3 rounds: the copies
+// compute one offset per key for its K and V rows, and the table entries
+// are requested beside seq_len.
+// The tensor cores here do not set the pace -- the kernel does about G / 2
+// flops per byte -- they only shorten each round's chain of dependent
+// work, which is what kept the CUDA-core design at 2x its bound.
+//
+// Split-KV: where (sequence, KV head) pairs are too few to fill the card,
+// the host cuts the table's key range into `nsplit` splits of whole rounds
+// (from shapes alone, never from seq_lens: the split path reads nothing
+// back).  Each split block writes its unnormalised O, its max m and sum l
+// in fp32 to a workspace, a split past seq_len writes l = 0, and
+// merge_kernel combines the splits by their log-sum-exp and writes the
+// output; with one split the block writes the output itself.
+//
+// fp32 (decode_kernel): the CUDA cores, kept as it is to hold the port
+// against the reference at fp32: one block per (KV head, sequence) holds
+// that head's G query rows, pages stream through a ring of kStages
+// shared-memory stages with 16-byte cp.async copies issued kStages - 1
+// pages ahead, scores and probabilities live in shared memory and each
+// thread keeps up to 8 fp32 outputs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -47,19 +79,12 @@ constexpr int kMaxOut = 8;                               // outputs per thread: 
 constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -272,27 +297,321 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bf16 kernels
+using bf16 = __nv_bfloat16;
+constexpr int kTcWarps = attn_tile::kWarps;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kRoundKeys = attn_tile::kTileKeys;  // keys per round (and split unit)
+constexpr int kTcStages = 2;                       // rounds in the ring
+constexpr int kMaxTcGroup = 16 * kTcWarps;        // query heads per KV head
+constexpr int kMergeThreads = 128;
+
+// 16-row groups of q a block stages: G = h / hkv rows.
+__host__ __device__ inline int q_groups(int g) { return (g + 15) / 16; }
+
+// Shared memory: the K ring [kTcStages][kRoundKeys][D + pad] and the V
+// ring (after the key loop: the split warps' partial (m, l, O)), the q rows
+// [16 * groups][D + pad] and the table row [m].
+template <int D>
+__host__ __device__ inline size_t tc_smem_bytes(int groups, int m) {
+  return (size_t)(2 * kTcStages * kRoundKeys + 16 * groups) * attn_tile::row_stride<D>() *
+             sizeof(bf16) +
+         (size_t)m * sizeof(int);
+}
+
+// Block (kvh, b, sp) attends the G query heads of sequence b that read KV
+// head kvh over keys [sp * split_keys, min(seq_len, (sp + 1) * split_keys)).
+// One split (gridDim.z == 1): it writes out.  More: it writes its rows'
+// unnormalised O to part_o (nsplit, b_count, h, D) and (m, l) -- m in log2
+// units -- to part_ml (nsplit, b_count, h, 2), l = 0 for a split with no key.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
+                    const bf16* __restrict__ v_pool, const int* __restrict__ tables,
+                    const int* __restrict__ seq_lens, bf16* __restrict__ out,
+                    float* __restrict__ part_o, float* __restrict__ part_ml, int b_count,
+                    int h, int hkv, int page, int m, int split_keys, float scale,
+                    float softcap) {
+  using Tile = attn_tile::WarpTile<D>;
+  constexpr int S = attn_tile::row_stride<D>();
+  constexpr int kRowChunks = D / 8;  // 16-byte chunks per row
+  static_assert((kRoundKeys * 2 * kTcStages * S * sizeof(bf16)) >=
+                    (kTcWarps - 1) * 16 * Tile::kPartStride * sizeof(float),
+                "the split warps' partials must fit in the K/V rings");
+  const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int nsplit = gridDim.z;
+  const int grp = h / hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t row0 = (size_t)b * h + (size_t)kvh * grp;  // the block's first (b, head) row
+  const size_t part0 = (size_t)sp * b_count * h + row0;   // and its first partial row
+
+  const attn_tile::WarpRole role(grp, warp);
+  const int groups = q_groups(grp);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + kTcStages * kRoundKeys * S;
+  bf16* q_s = v_s + kTcStages * kRoundKeys * S;
+  int* tbl_s = reinterpret_cast<int*>(q_s + 16 * groups * S);
+
+  // The table entries of the split's pages, by page index, are requested
+  // beside seq_len (they do not depend on it), so the two loads overlap;
+  // then whether any entry inside the context is -1 (the engine never
+  // builds one).
+  const int k_begin = sp * split_keys;
+  const int seq_len = seq_lens[b];
+  const int p0 = k_begin / page;
+  const int pe = min(m, (k_begin + split_keys + page - 1) / page);
+  const int k_end = min(min(seq_len, m * page), k_begin + split_keys);
+  const int p1 = (k_end + page - 1) / page;
+  int hole = 0;
+  for (int i = p0 + tid; i < pe; i += kTcThreads) {
+    const int blk = tables[(size_t)b * m + i];
+    tbl_s[i] = blk;
+    hole |= blk < 0 && i < p1;
+  }
+  if (k_end <= k_begin) {  // no key: rows of 0, or an empty split
+    if (nsplit == 1) {
+      uint4* o = reinterpret_cast<uint4*>(out + row0 * D);
+      for (int e = tid; e < grp * kRowChunks; e += kTcThreads) o[e] = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      for (int r = tid; r < grp; r += kTcThreads)
+        reinterpret_cast<float2*>(part_ml)[part0 + r] = make_float2(-INFINITY, 0.f);
+    }
+    return;
+  }
+
+  // Every row of the block keeps the keys [k_begin, k_end).
+  Tile w;
+  {
+    const int lo[2] = {k_begin, k_begin}, hi[2] = {k_end, k_end};
+    bool exists[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      exists[i] = role.active && 16 * role.rw + (lane >> 2) + 8 * i < grp;
+    w.set_rows(lo, hi, exists);
+  }
+
+  // The G q rows (rows past G are zero); these copies join the first
+  // round's group.
+  for (int e = tid; e < 16 * groups * kRowChunks; e += kTcThreads) {
+    const int r = e / kRowChunks, c = e - r * kRowChunks;
+    bf16* dst = q_s + r * S + c * 8;
+    if (r < grp)
+      attn_tile::cp_async16(dst, q + (row0 + r) * D + c * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  hole = __syncthreads_or(hole);
+
+  const int pshift = (page & (page - 1)) == 0 ? __ffs(page) - 1 : -1;
+  const size_t tok_stride = (size_t)hkv * D;  // elements between a page's tokens
+  const bf16* kb = k_pool + (size_t)kvh * D;
+  const bf16* vb = v_pool + (size_t)kvh * D;
+  const int nrounds = (k_end - k_begin + kRoundKeys - 1) / kRoundKeys;
+
+  // Every 16-byte copy of round rd's K and V rows into its stage, then one
+  // commit (an empty group past the last round): thread tid copies chunk c8
+  // of every kRowsPerPass-th row, K and V of a key from one offset.  A key
+  // on a -1 entry is read from page 0 (its scores are masked below, so its
+  // rows only ever meet p = 0), and V rows past k_end up to the next 16-key
+  // chunk are zeroed: P V multiplies them by p = 0.
+  constexpr int kRowsPerPass = kTcThreads / kRowChunks;
+  const int c8 = (tid % kRowChunks) * 8;
+  auto fetch = [&](int rd) {
+    if (rd < nrounds) {
+      const int k0 = k_begin + rd * kRoundKeys;
+      const int n = min(kRoundKeys, k_end - k0);
+      const int st = rd % kTcStages;
+      bf16* ks = k_s + st * kRoundKeys * S;
+      bf16* vs = v_s + st * kRoundKeys * S;
+      for (int r = tid / kRowChunks; r < n; r += kRowsPerPass) {
+        const int t = k0 + r;
+        const int pi = pshift >= 0 ? t >> pshift : t / page;
+        const size_t off =
+            ((size_t)max(tbl_s[pi], 0) * page + (t - pi * page)) * tok_stride + c8;
+        attn_tile::cp_async16(ks + r * S + c8, kb + off);
+        attn_tile::cp_async16(vs + r * S + c8, vb + off);
+      }
+      for (int r = n + tid / kRowChunks; r < ((n + 15) & ~15); r += kRowsPerPass)
+        *reinterpret_cast<uint4*>(vs + r * S + c8) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    attn_tile::cp_async_commit();
+  };
+  // The page of key t.
+  auto page_of = [&](int t) { return pshift >= 0 ? t >> pshift : t / page; };
+
+  for (int rd = 0; rd < kTcStages - 1; ++rd) fetch(rd);
+  for (int rd = 0; rd < nrounds; ++rd) {
+    fetch(rd + kTcStages - 1);
+    attn_tile::cp_async_wait<kTcStages - 1>();  // this thread's copies of round rd (and q)
+    __syncthreads();                             // ...everyone's
+    if (rd == 0 && role.active) w.load_q(q_s + 16 * role.rw * S, S);
+    const int k0 = k_begin + rd * kRoundKeys;
+    const int st = rd % kTcStages;
+    // The round's kept keys as runs [a, b) between -1 entries: one run,
+    // the whole round, unless the split has a -1 entry.  A run narrows the
+    // rows' kept keys (every row of a decode block keeps the same ones), so
+    // the tile masks the keys outside it.
+    const int stop = min(k0 + kRoundKeys, k_end);
+    int a = k0;
+    do {
+      int b = stop;
+      if (hole) {
+        while (a < stop && tbl_s[page_of(a)] < 0) a = (page_of(a) + 1) * page;
+        b = a;
+        while (b < stop && tbl_s[page_of(b)] >= 0) b = min(stop, (page_of(b) + 1) * page);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (w.lo[i] != attn_tile::kNoKey) {
+            w.lo[i] = a;
+            w.hi[i] = b;
+          }
+        }
+        if (w.lo_min != attn_tile::kNoKey) {
+          w.lo_min = w.lo_max = a;
+          w.hi_min = w.hi_max = b;
+        }
+      }
+      int c0 = role.c0, c1 = role.c1;
+      w.live_chunks(k0, c0, c1);
+      if (role.active && a < b && c0 < c1) {
+        const bool edge = !(k0 + 16 * c0 >= w.lo_max && k0 + 16 * c1 <= w.hi_min);
+        w.tile(k_s + st * kRoundKeys * S, v_s + st * kRoundKeys * S, S, k0, c0, c1, edge, scale,
+               softcap);
+      }
+      a = b;
+    } while (hole && a < stop);
+    __syncthreads();  // stage st is free for round rd + kTcStages
+  }
+  attn_tile::cp_async_wait<0>();  // no copy outlives the block
+  attn_tile::merge_splits(w, role, reinterpret_cast<float*>(k_s));
+  if (!role.active || role.sp != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * role.rw + (lane >> 2) + 8 * i;
+    if (r >= grp) continue;
+    if (nsplit == 1) {
+      w.store_row(i, out + (row0 + r) * D);
+      continue;
+    }
+    float* po = part_o + (part0 + r) * D;
+#pragma unroll
+    for (int n = 0; n < Tile::kN; ++n)
+      *reinterpret_cast<float2*>(po + 8 * n + 2 * (lane & 3)) =
+          make_float2(w.o[n][2 * i], w.o[n][2 * i + 1]);
+    if ((lane & 3) == 0)
+      reinterpret_cast<float2*>(part_ml)[part0 + r] = make_float2(w.m[i], w.l[i]);
+  }
+}
+
+// Combines the nsplit partials of each of `rows` = b_count * h rows:
+// out = sum_s O_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M the largest m_s of
+// the splits with l_s > 0; a split with l_s = 0 is skipped (its O_s was
+// never written), a row with no such split is 0.  D / 4 threads per row,
+// 4 outputs each.
+template <int D>
+__global__ void __launch_bounds__(kMergeThreads)
+    merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                 bf16* __restrict__ out, int rows, int nsplit) {
+  constexpr int kLanes = D / 4;
+  constexpr int kRowsPerBlock = kMergeThreads / kLanes;
+  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
+  const int c = (threadIdx.x % kLanes) * 4;
+  if (r >= rows) return;
+  const float2* ml = reinterpret_cast<const float2*>(part_ml);
+  float mx = -INFINITY;
+  for (int s = 0; s < nsplit; ++s) {
+    const float2 x = ml[(size_t)s * rows + r];
+    if (x.y > 0.f) mx = fmaxf(mx, x.x);
+  }
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < nsplit; ++s) {
+    const float2 x = ml[(size_t)s * rows + r];
+    if (!(x.y > 0.f)) continue;
+    const float a = exp2f(x.x - mx);
+    const float4 o = *reinterpret_cast<const float4*>(part_o + ((size_t)s * rows + r) * D + c);
+    l += x.y * a;
+    acc.x += a * o.x;
+    acc.y += a * o.y;
+    acc.z += a * o.z;
+    acc.w += a * o.w;
+  }
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+  *reinterpret_cast<uint2*>(out + (size_t)r * D + c) =
+      make_uint2(attn_tile::pack_bf16(acc.x * inv, acc.y * inv),
+                 attn_tile::pack_bf16(acc.z * inv, acc.w * inv));
+}
+
+template <int D>
+int launch_tc(const void* q, const void* kp, const void* vp, const void* tables,
+              const void* lens, void* out, void* part_o, void* part_ml, int b, int h,
+              int hkv, int page, int m, int nsplit, int split_keys, float scale,
+              float softcap, cudaStream_t stream) {
+  const int g = h / hkv;
+  if (g > kMaxTcGroup || nsplit < 1 || split_keys < kRoundKeys || split_keys % kRoundKeys ||
+      (nsplit > 1 && (part_o == nullptr || part_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc_smem_bytes<D>(q_groups(g), m);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(hkv, b, nsplit);
+  paged_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
+      static_cast<const int*>(tables), static_cast<const int*>(lens), static_cast<bf16*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), b, h, hkv, page, m,
+      split_keys, scale, softcap);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return (int)err;
+  const int rows = b * h, per_block = kMergeThreads / (D / 4);
+  merge_kernel<D><<<(rows + per_block - 1) / per_block, kMergeThreads, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<bf16*>(out), rows, nsplit);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q (b, h, d), pools (n, page, hkv, d),
-// tables (b, m) int32, seq_lens (b,) int32, out (b, h, d); pools 16-byte
-// aligned (the wrapper checks).  Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for an unsupported head dim,
-// dtype or group width.  Launches on `stream`, allocates nothing, never
+// dtype: 0 = float32 (decode_kernel), 1 = bfloat16 (paged_tc_kernel, then
+// merge_kernel when nsplit > 1).  q (b, h, d), pools (n, page, hkv, d),
+// tables (b, m) int32, seq_lens (b,) int32, out (b, h, d); the pools (and
+// bf16 q) 16-byte aligned (the wrapper checks).  bf16 only: the keys are cut into
+// nsplit splits of split_keys (a multiple of 64) and, when nsplit > 1,
+// part_o (nsplit, b, h, d) and part_ml (nsplit, b, h, 2) are fp32
+// workspaces.  Returns cudaGetLastError() after the launches (0 on
+// success), or cudaErrorInvalidValue for an unsupported head dim, dtype,
+// group width or split.  Launches on `stream`, allocates nothing, never
 // synchronises.
 extern "C" int paged_attention(int dtype, const void* q, const void* k_pool,
                                const void* v_pool, const void* tables,
-                               const void* seq_lens, void* out, int b, int h,
-                               int hkv, int d, int page, int m, float scale,
+                               const void* seq_lens, void* out, void* part_o,
+                               void* part_ml, int b, int h, int hkv, int d, int page,
+                               int m, int nsplit, int split_keys, float scale,
                                float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PA_LAUNCH(T, DIM)                                                       \
-  return launch<T, DIM>(q, k_pool, v_pool, tables, seq_lens, out, b, h, hkv, \
-                        page, m, scale, softcap, st)
-  if (dtype == 0 && d == 64) PA_LAUNCH(float, 64);
-  if (dtype == 0 && d == 128) PA_LAUNCH(float, 128);
-  if (dtype == 1 && d == 64) PA_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) PA_LAUNCH(__nv_bfloat16, 128);
+#define PA_LAUNCH(DIM)                                                              \
+  return launch<float, DIM>(q, k_pool, v_pool, tables, seq_lens, out, b, h, hkv, \
+                            page, m, scale, softcap, st)
+  if (dtype == 0 && d == 64) PA_LAUNCH(64);
+  if (dtype == 0 && d == 128) PA_LAUNCH(128);
 #undef PA_LAUNCH
+#define PA_LAUNCH_TC(DIM)                                                           \
+  return launch_tc<DIM>(q, k_pool, v_pool, tables, seq_lens, out, part_o, part_ml, \
+                        b, h, hkv, page, m, nsplit, split_keys, scale, softcap, st)
+  if (dtype == 1 && d == 64) PA_LAUNCH_TC(64);
+  if (dtype == 1 && d == 128) PA_LAUNCH_TC(128);
+#undef PA_LAUNCH_TC
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one paged_tc_kernel block (dtype 1) for head
+// dim d, g query heads per KV head and a table width of m, in bytes (0 for
+// anything else).
+extern "C" long long paged_attention_smem_bytes(int dtype, int d, int g, int m) {
+  if (dtype == 1 && d == 64) return (long long)tc_smem_bytes<64>(q_groups(g), m);
+  if (dtype == 1 && d == 128) return (long long)tc_smem_bytes<128>(q_groups(g), m);
+  return 0;
 }

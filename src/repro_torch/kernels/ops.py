@@ -89,5 +89,8 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zeroes every kernel's launch count (and the decode kernel's count of
+    split-KV merges)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    _attention.paged_attention.merge_launches = 0

@@ -403,13 +403,15 @@ CHIP_SMOKE = _chip_smoke()
 BF16_TOL = CHIP_SMOKE.TOL["bfloat16"]
 
 
-def _tensor_core_attention(q, k, v, keep, softcap=0.0, tile=64):
+def _tensor_core_partials(q, k, v, keep, softcap=0.0, tile=64):
     """Test-only emulation of the bf16 tensor-core kernels' arithmetic
-    (csrc/attention_tile.cuh): bf16 q, k, v; fp32 scores with the scale,
-    softcap and mask; an online softmax over tiles of 64 keys with fp32 max
-    and sum; the probabilities rounded to bf16 before P V; fp32 sums; O / l
-    with a safe l (a row that keeps no key is 0); the output rounded to
-    bf16.  q (B, Tq, H, D), k and v (B, Tk, Hkv, D), keep (B, Tq, Tk)."""
+    (csrc/attention_tile.cuh) before the division: bf16 q, k, v; fp32
+    scores with the scale, softcap and mask; an online softmax over tiles
+    of 64 keys with fp32 max and sum; the probabilities rounded to bf16
+    before P V; fp32 sums.  q (B, Tq, H, D), k and v (B, Tk, Hkv, D), keep
+    (B, Tq, Tk).  Returns the unnormalised O (B, Hkv, G, Tq, D), the row
+    max m and the row sum l (B, Hkv, G, Tq); a row that keeps no key has
+    m = -inf and l = 0."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, tq, hkv, h // hkv, d)
@@ -430,6 +432,14 @@ def _tensor_core_attention(q, k, v, keep, softcap=0.0, tile=64):
         o = o * alpha[..., None] + torch.einsum(
             "bhgts,bshd->bhgtd", p.bfloat16().float(), vf[:, k0:k0 + tile])
         m = m_new
+    return o, m, l
+
+
+def _tensor_core_attention(q, k, v, keep, softcap=0.0, tile=64):
+    """The tensor-core kernels' output: O / l with a safe l (a row that
+    keeps no key is 0), rounded to bf16, as (B, Tq, H, D)."""
+    b, tq, h, d = q.shape
+    o, _m, l = _tensor_core_partials(q, k, v, keep, softcap, tile)
     out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], 0.0)
     return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).bfloat16()
 
@@ -494,3 +504,131 @@ def test_tensor_core_rounding_stays_inside_bf16_tol_ragged(case, shape):
     print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+# ------------------------------------------------ the bf16 decode kernel
+def _decode_case_cpu(h, hkv, d, seed, seq_lens=(163, 50, 16, 300, 1, 0, 64, 33),
+                     hole=(6, 0), page=16):
+    """chip_smoke.decode_case's decode batch, built on the CPU from numpy:
+    -1 table entries past each sequence's pages, and one inside a context
+    at ``hole`` (row, page)."""
+    rng = np.random.default_rng(seed)
+    b = len(seq_lens)
+    m = max(-(-n // page) for n in seq_lens) + 2
+    n = b * m + 1
+    q = _bf16((b, h, d), seed + 1)
+    kp, vp = _bf16((n, page, hkv, d), seed + 2), _bf16((n, page, hkv, d), seed + 3)
+    tables = rng.permutation(n - 1)[: b * m].reshape(b, m).astype(np.int32)
+    for i, sl in enumerate(seq_lens):
+        tables[i, -(-sl // page):] = -1
+    if hole is not None:
+        tables[hole] = -1
+    return q, kp, vp, torch.from_numpy(tables), torch.tensor(seq_lens, dtype=torch.int32)
+
+
+def _tensor_core_decode(q, kp, vp, tables, seq_lens, splits, split_keys, softcap=0.0):
+    """Test-only emulation of the bf16 decode kernel (csrc/paged_attention.cu):
+    per key split, paged_tc_kernel's tensor-core arithmetic over the split's
+    keys (fp32 partials O, m, l), then merge_kernel's log-sum-exp merge: the
+    splits with l > 0 weighted by exp(m - M), M their largest m; a row with
+    no such split is 0.  Returns the bf16 output (B, H, D) and l per split
+    (splits, B, Hkv, G)."""
+    b, h, d = q.shape
+    page = kp.shape[1]
+    max_ctx = tables.shape[1] * page
+    k, v = (tco.gather_paged(p, tables, max_ctx) for p in (kp, vp))
+    t = torch.arange(max_ctx)
+    keep = (t[None] < seq_lens[:, None]) & (tables.repeat_interleave(page, dim=1) >= 0)
+    parts = [_tensor_core_partials(q[:, None], k[:, lo:lo + split_keys],
+                                   v[:, lo:lo + split_keys],
+                                   keep[:, None, lo:lo + split_keys], softcap)
+             for lo in range(0, splits * split_keys, split_keys)]
+    ms = torch.stack([m for _o, m, _l in parts])
+    ls = torch.stack([l for _o, _m, l in parts])
+    top = ms.masked_fill(ls == 0, float("-inf")).amax(0)
+    top = torch.where(top == float("-inf"), torch.zeros_like(top), top)
+    w = torch.where(ls > 0, torch.exp(ms - top), torch.zeros_like(ms))
+    o = sum(wi[..., None] * oi for wi, (oi, _m, _l) in zip(w, parts))
+    l = (w * ls).sum(0)
+    out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], 0.0)
+    return out.reshape(b, h, d).bfloat16(), ls[..., 0]
+
+
+# the H100's SM count, which the host's split choice reads on the card
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("case", sorted(CHIP_SMOKE.DECODE_CASES))
+@pytest.mark.parametrize("shape", [(2, 2, 128), (14, 2, 64)], ids=["G1", "G7"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_tensor_core_rounding_stays_inside_bf16_tol_decode(case, shape, softcap):
+    """The bf16 decode kernel's arithmetic, split by the host's choice for
+    these shapes, against its plain version on chip_smoke.py's phase-2
+    decode batches, at the Llama-2-7B (G = 1, D = 128, fewer heads) and
+    Qwen2-0.5B (G = 7, D = 64) groupings: inside the bf16 tolerance the card
+    holds it to, and seq_len = 0 rows exactly 0."""
+    h, hkv, d = shape
+    q, kp, vp, tables, lens = _decode_case_cpu(h, hkv, d, 90, **CHIP_SMOKE.DECODE_CASES[case])
+    splits, keys = paged_attention.decode_splits(q.shape[0], hkv, tables.shape[1] * kp.shape[1],
+                                                 H100_SMS)
+    got, _ = _tensor_core_decode(q, kp, vp, tables, lens, splits, keys, softcap)
+    want = tco.paged_attention_ref(q, kp, vp, tables, lens, logit_softcap=softcap)
+    print(f"splits={splits} of {keys} keys, "
+          f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(got[lens == 0], torch.zeros_like(got[lens == 0]))
+
+
+def test_tensor_core_decode_empty_splits_take_no_part():
+    """chip_smoke's long contexts at 4 splits of 320 keys: the splits at or
+    past a row's seq_len have l = 0 and the merge skips them, so the row
+    equals the merge of its other splits alone; the seq_len = 0 row has
+    l = 0 in every split and comes out exactly 0."""
+    kw = CHIP_SMOKE.DECODE_CASES["long contexts"]
+    q, kp, vp, tables, lens = _decode_case_cpu(14, 2, 64, 91, **kw)
+    splits, keys = paged_attention.decode_splits(3, 2, tables.shape[1] * kp.shape[1], H100_SMS)
+    assert (splits, keys) == (4, 320) and lens.tolist() == [384, 1000, 0]
+    got, ls = _tensor_core_decode(q, kp, vp, tables, lens, splits, keys)
+    assert (ls[2:, 0] == 0).all() and (ls[:2, 0] > 0).all()  # row 0 keeps keys 0..383
+    assert (ls[:, 2] == 0).all() and torch.equal(got[2], torch.zeros_like(got[2]))
+    alone, _ = _tensor_core_decode(q[:1], kp, vp, tables[:1], lens[:1], 2, keys)
+    assert torch.equal(got[0], alone[0])
+
+
+@pytest.mark.parametrize("batch,kv_heads,max_keys,sms", [
+    (8, 32, 256, 132),  # the split serve's heaviest call at Llama-2-7B: one split
+    (16, 32, 4000, 132),  # 2-4 k contexts at Llama-2-7B: 512 pairs fill the card
+    (16, 2, 4000, 132),  # 2-4 k contexts at Qwen2-0.5B: 32 pairs
+    (3, 32, 1040, 132), (3, 2, 1040, 132), (4, 2, 768, 132),  # phase 2's long cases
+    (1, 1, 100_000, 132), (1, 1, 64, 132), (1, 1, 1, 132), (5, 3, 1000, 7), (2, 8, 792, 132),
+])
+def test_decode_splits_cover_every_key_once(batch, kv_heads, max_keys, sms):
+    """The host's split choice, a function of shapes alone: whole rounds of
+    64 keys, at least 256 keys a split where it splits, one split where the
+    (sequence, KV head) pairs fill 2 blocks per SM, and every key of the
+    table in exactly one split."""
+    n, keys = paged_attention.decode_splits(batch, kv_heads, max_keys, sms)
+    assert keys % paged_attention.SPLIT_ROUND == 0 and keys >= 64
+    assert 1 <= n <= paged_attention.MAX_SPLITS
+    covered = np.zeros(max_keys, np.int64)
+    for i in range(n):
+        covered[i * keys:(i + 1) * keys] += 1
+    assert (covered == 1).all() and (n - 1) * keys < max_keys <= n * keys
+    if n > 1:
+        assert keys >= paged_attention.MIN_SPLIT_KEYS
+        assert batch * kv_heads * (n - 1) < 2 * sms
+    if batch * kv_heads >= 2 * sms:
+        assert n == 1
+
+
+def test_decode_cases_split_at_both_shapes():
+    """chip_smoke.py's phase-2 long contexts run several splits on the card
+    at both model shapes, the serving batch one."""
+    def splits(hkv, seq_lens, page=16, **_):
+        m = max(-(-n // page) for n in seq_lens) + 2
+        return paged_attention.decode_splits(len(seq_lens), hkv, m * page, H100_SMS)[0]
+
+    long = CHIP_SMOKE.DECODE_CASES["long contexts"]
+    assert (splits(32, **long), splits(2, **long)) == (3, 4)
+    assert splits(32, **CHIP_SMOKE.DECODE_CASES["page 24"]) == 3
+    assert splits(2, seq_lens=(163, 50, 16, 300, 1, 0, 64, 33)) == 1
