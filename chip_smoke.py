@@ -60,12 +60,31 @@ any failure exits non-zero before the result lines:
    (``--calibrate``), the fitted profile, and phase 3's workload served on
    each calibrated engine: measured against predicted seconds per
    iteration, beside the same figures of the uncalibrated runs of 3-3c.
+7. Wall-clock co-serving through ``repro_torch.serving.runtime``:
+   (a) the fused engine of ``launch.serve --mode wallclock`` at full width
+   and bf16, calibrated, replays a ``loadgen`` trace (gamma online
+   arrivals over an offline batch) with ``CoServingRuntime.replay`` on the
+   host clock: P99 TTFT / TPOT, SLO attainment, tok/s, aborts, preemptions,
+   checkpoint and restore counts, the kernels' launches (zeroed just
+   before, read just after), the host step under the runtime, and per
+   safepoint abort the host time to the online prefill's launch and the
+   device work still queued.  (b) The threaded runtime (``start()``)
+   behind a ``Frontend`` and the metrics server: decode steps timed and
+   profiled while it runs, against phase 3's; streams with consumer
+   threads and one ``submit_batch``; the metrics text and ``/health``
+   scraped (200, HEALTHY); ``stop(drain=True)``; every stream lossless and
+   every request finished.  (c) Phase 4's requests at fp32 replayed under a
+   ManualClock so that online arrivals abort pure-offline batches at
+   safepoints: at least one abort, and every request's tokens equal phase
+   4's serial run's up to the first near-tie.  The kernel line carries (a)'s
+   launches of the ragged attention and checkpoint gather kernels.
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -713,7 +732,7 @@ def time_decode_stacking(torch, eng, n: int = 12):
     del caches, out
 
 
-def profile_steps(torch, eng, steps: int = 6):
+def profile_steps(torch, eng, steps: int = 6, figures=None):
     """Where an iteration's time goes, on the served engine with 8 fresh
     offline requests (64-token prompts) decoding: ``steps`` steps timed
     without the profiler, then ``steps`` more under ``torch.profiler``.
@@ -721,7 +740,8 @@ def profile_steps(torch, eng, steps: int = 6):
     profiler stretches a step) and the kernels by device time: the ten
     largest and every kernel of the port.  Returns the rows (device us,
     calls, name) per step, or None where the profiler cannot trace the
-    card: that is reported, not fatal."""
+    card: that is reported, not fatal.  ``figures`` (a dict) receives the
+    step and busy times as text."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -760,10 +780,13 @@ def profile_steps(torch, eng, steps: int = 6):
         log("  profiler unavailable: no device time in its trace")
         return None
     busy = sum(r[0] for r in rows) * steps / 1e6
-    log(f"  decode steps: {plain * 1e3 / steps:.2f} ms per step without the profiler, "
-        f"{wall * 1e3 / steps:.2f} ms with it (host clock); device busy "
-        f"{busy * 1e3 / steps:.2f} ms per step = {busy / plain:.1%} of an unprofiled step "
-        f"({busy / wall:.1%} of a profiled one)")
+    text = (f"{plain * 1e3 / steps:.2f} ms per step without the profiler, "
+            f"{wall * 1e3 / steps:.2f} ms with it (host clock); device busy "
+            f"{busy * 1e3 / steps:.2f} ms per step = {busy / plain:.1%} of an unprofiled step "
+            f"({busy / wall:.1%} of a profiled one)")
+    log(f"  decode steps: {text}")
+    if figures is not None:
+        figures["decode"] = text
     for i, (us, n, name) in enumerate(rows):
         if i < 10 or "(anonymous namespace)::" in name:
             log(f"    {us / 1e3:8.3f} ms/step  {n:5d} calls/step  {name[:90]}")
@@ -1116,8 +1139,467 @@ def calibrated_serves(torch, serve_mod, uncalibrated):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- phase 7
+# (a): the fused engine of ``--mode wallclock`` at full width and bf16, its
+# context raised to phase 3's lengths, on a pool that forces preemption
+WALL_ARGV = ["--mode", "wallclock", "--full", "--device", "cuda", "--dtype", "bfloat16",
+             "--num-device-blocks", "96"]
+WALL_CONTEXT = 256
+# the replayed trace: gamma arrivals of online requests (64-token prompts),
+# and an offline batch (128-token prompts) submitted at t = 0; 48 new tokens
+WALL_RATE, WALL_CV, WALL_SECONDS, WALL_OFFLINE = 2.0, 1.0, 20.0, 16
+# (c): phase 4's requests replayed at fp32 under ManualClock(auto_tick=1e-3)
+# with TTFT SLO 0 (Algorithm 2 trips on any arrival into a pure-offline
+# batch): the offline jobs at t = 0, the online requests at these times.
+# The plans and the clock's readings depend on the depth and the lengths,
+# not on the width or the device: at 32 layers the first two arrivals land
+# at a safepoint of a pure-offline iteration and abort it; the last two
+# land while online work runs.
+REPLAY_ONLINE_AT = (0.040, 0.380, 0.600, 0.900)
+
+
+class AbortProbe:
+    """Per safepoint abort of an engine under the runtime: the host time from
+    the trigger (a drained online arrival setting the preemption flag, the
+    runtime's ``_abort_trigger_t``) to the abort and to the first launch of
+    that request's prefill, and on the device the work still queued at the
+    abort (an event recorded behind it on the engine's stream, against one
+    recorded at the same moment on an idle side stream) and the time from
+    the abort to the prefill's start.  Wraps the engine instance's methods;
+    ``close()`` restores them."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.side = torch.cuda.Stream(eng.device)
+        self.trigger = None  # (host time, request) of the flag-setting arrival
+        self.aborts = []
+        on_arrival, run, build = eng.on_online_arrival, eng.safepoints.run, eng._build_fused
+
+        def on_online_arrival(req):
+            was = eng.flag.is_set()
+            on_arrival(req)
+            if eng.flag.is_set() and not was:
+                self.trigger = (time.perf_counter(), req)
+
+        def safepoints_run(*a, **kw):
+            completed, done = run(*a, **kw)
+            if not completed and self.trigger is not None:
+                self.aborts.append({"trigger": self.trigger[0], "request": self.trigger[1],
+                                    "abort": time.perf_counter(), "segment": done,
+                                    "now": self.event(self.side), "queued": self.event(None),
+                                    "launch": None, "launch_event": None})
+                self.trigger = None
+            return completed, done
+
+        def build_fused(plan):
+            out = build(plan)
+            chunked = {c.request.request_id for c in plan.prefill_chunks}
+            for a in self.aborts:
+                if a["launch"] is None and a["request"].request_id in chunked:
+                    a["launch"], a["launch_event"] = time.perf_counter(), self.event(None)
+            return out
+
+        eng.on_online_arrival = on_online_arrival
+        eng.safepoints.run = safepoints_run
+        eng._build_fused = build_fused
+
+    def event(self, stream):
+        torch = self.torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream if stream is not None else torch.cuda.current_stream(self.eng.device))
+        return ev
+
+    def close(self):
+        eng = self.eng
+        del eng.on_online_arrival, eng.safepoints.run, eng._build_fused  # the class's
+
+    def report(self, label):
+        self.torch.cuda.synchronize(self.eng.device)
+        rows = []
+        for i, a in enumerate(self.aborts):
+            queued = max(0.0, a["now"].elapsed_time(a["queued"]))
+            row = {"segment": a["segment"],
+                   "trigger_to_abort_ms": (a["abort"] - a["trigger"]) * 1e3,
+                   "device_queued_at_abort_ms": queued}
+            if a["launch"] is not None:
+                row["trigger_to_prefill_launch_ms"] = (a["launch"] - a["trigger"]) * 1e3
+                row["device_abort_to_prefill_start_ms"] = a["now"].elapsed_time(a["launch_event"])
+            rows.append(row)
+            log(f"  {label} abort {i}: " + ", ".join(
+                f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
+        return rows
+
+
+def wall_trace(loadgen, vocab):
+    """Phase 7(a)'s trace, from seed 7."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    times = loadgen.gamma_arrivals(WALL_RATE, WALL_CV, WALL_SECONDS, rng)
+    online = loadgen.make_online_requests(times, loadgen.LengthSpec(64, MAX_NEW), rng)
+    offline = loadgen.make_offline_batch(WALL_OFFLINE, loadgen.LengthSpec(128, MAX_NEW), rng)
+    return loadgen.attach_prompts(online + offline, vocab, rng)
+
+
+def check_served(label, rt, m, reqs):
+    """Every request finished with all its tokens; the replay did not run
+    out of steps; the runtime is not FAILED."""
+    short = [r.request_id for r in reqs if len(r.output_tokens) != r.max_new_tokens]
+    health, _age = rt.check_health()
+    if rt.stats.steps_exhausted:
+        raise AssertionError(f"{label}: the replay exhausted its steps")
+    if m.num_finished != len(reqs) or short:
+        raise AssertionError(f"{label}: {m.num_finished} of {len(reqs)} requests finished; "
+                             f"without all their tokens: {short}")
+    if health.name == "FAILED":
+        raise AssertionError(f"{label}: runtime health FAILED")
+    return health
+
+
+def replay_bf16(torch, ops, serve_mod, args):
+    """Phase 7(a): the calibrated bf16 fused engine replays ``wall_trace``
+    through ``CoServingRuntime.replay`` on the host clock; kernel launches
+    counted (zeroed just before, read just after), every step's host time
+    kept, every abort probed.  Returns (cfg, params, counts)."""
+    import statistics as st
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.runtime import CoServingRuntime
+
+    cfg, params = serve_mod.wallclock_model(args)
+    eng = serve_mod.wallclock_engine(cfg, params, args, max_model_len=WALL_CONTEXT)
+    t0 = time.perf_counter()
+    t_chunk = serve_mod.calibrate_wallclock(eng, args)
+    log(f"  calibrated in {time.perf_counter() - t0:.1f} s: one 32-token chunk {t_chunk * 1e3:.2f} "
+        f"ms, SLO TTFT {eng.sched.slo.ttft * 1e3:.2f} ms (3x) TPOT {eng.sched.slo.tpot * 1e3:.0f} ms")
+    reqs = wall_trace(loadgen, cfg.vocab_size)
+    n_on = sum(r.is_online for r in reqs)
+    log(f"  trace: {n_on} online (gamma rate {WALL_RATE}/s cv {WALL_CV} over {WALL_SECONDS:g} s, "
+        f"64-token prompts) + {len(reqs) - n_on} offline at t=0 (128-token prompts), "
+        f"{MAX_NEW} new tokens each; pool {eng.ec.num_device_blocks} blocks of "
+        f"{eng.ec.block_size}, at most {eng.sched.sc.max_batch_seqs} sequences per iteration")
+    steps = []
+    step = eng.step
+
+    def timed_step():
+        s0 = time.perf_counter()
+        alive = step()
+        steps.append(time.perf_counter() - s0)
+        return alive
+
+    eng.step = timed_step
+    rt = CoServingRuntime(eng)
+    probe = AbortProbe(torch, eng)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    try:
+        m = rt.replay(reqs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        probe.close()
+        del eng.step
+    health = check_served("7(a)", rt, m, reqs)
+    log(f"  P99 TTFT {m.p99_ttft * 1e3:.2f} ms, P99 TPOT {m.p99_tpot * 1e3:.2f} ms; SLO attainment "
+        f"TTFT {m.ttft_slo_attainment:.4f} TPOT {m.tpot_slo_attainment:.4f}; processed tok/s "
+        f"online {m.online_throughput:.1f} offline {m.offline_throughput:.1f}; generated tok/s "
+        f"online {m.online_gen_throughput:.1f} offline {m.offline_gen_throughput:.1f} over "
+        f"{rt.duration:.2f} s (host clock)")
+    log(f"  steps={eng.steps} safepoint_aborts={rt.stats.safepoint_aborts} "
+        f"preemptions={m.num_preemptions} ckpt_blocks={eng.ckpt.stats.blocks_checkpointed} "
+        f"ckpt_gather_rounds={eng.ckpt_gathers} restored_blocks={eng.restored_blocks} "
+        f"health={health.name} finished={m.num_finished}/{len(reqs)}")
+    log(f"  launches: {counts}")
+    if not counts["ragged_paged_attention"] or not counts["checkpoint_gather"]:
+        raise AssertionError("7(a): the runtime did not launch the ragged attention and the "
+                             "checkpoint gather kernels")
+    if counts["ragged_paged_attention"] != cfg.num_layers // len(
+            tf.segment_spans(cfg)) * eng.dispatches["fused_segment"]:
+        raise AssertionError("7(a): ragged_paged_attention launches != layers of the segments run")
+    q = st.quantiles([s * 1e3 for s in steps], n=10)
+    log(f"  host step under the runtime: {len(steps)} steps, median {st.median(steps) * 1e3:.2f} ms, "
+        f"p10 {q[0]:.2f} ms, p90 {q[-1]:.2f} ms; {iteration_figures(eng)}")
+    log(f"  abort latency (runtime, host clock): {[round(x * 1e3, 3) for x in rt.stats.preemption_latencies]} ms")
+    probe.report("7(a)")
+    del rt, eng, reqs
+    torch.cuda.empty_cache()
+    return cfg, params, counts
+
+
+def http_get(url):
+    """GET on 127.0.0.1 with proxies off: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(url, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+class StepWindows:
+    """Wraps an engine's ``step`` on the runtime's engine thread.  On
+    request (``measure``) it times the next ``n`` steps as one window: each
+    ``step()`` and the window's wall time, which also holds the runtime
+    loop's work between steps.  The requester blocks on an event or, with
+    ``poll_s``, sleeps in a loop as ``launch.serve``'s API thread does while
+    it waits for the next arrival.  With ``profiled`` the engine thread runs
+    the window under ``torch.profiler`` itself (a profiler on another
+    thread does not always see its kernels) and the window gets the device
+    time of the kernels, copies and fills in the trace."""
+
+    def __init__(self, torch, eng):
+        import threading
+
+        self.torch, self.eng, self.step = torch, eng, eng.step
+        self.want, self.result, self.done = None, None, threading.Event()
+        eng.step = self
+
+    def __call__(self):
+        w = self.want
+        if w is not None and not w["steps"]:
+            if w["profiled"]:
+                from torch.profiler import ProfilerActivity, profile
+
+                w["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                w["prof"].__enter__()
+            w["t0"] = time.perf_counter()
+        s0 = time.perf_counter()
+        alive = self.step()
+        if w is not None:
+            w["steps"].append(time.perf_counter() - s0)
+            if len(w["steps"]) == w["n"]:
+                w["wall"] = time.perf_counter() - w["t0"]
+                if w["profiled"]:
+                    self.torch.cuda.synchronize(self.eng.device)
+                    prof = w.pop("prof")
+                    prof.__exit__(None, None, None)
+                    w["device_us"] = device_time_us(prof)
+                self.result, self.want = w, None
+                self.done.set()
+        return alive
+
+    def measure(self, n=6, profiled=False, poll_s=None, timeout=120.0):
+        self.done.clear()
+        self.want = {"n": n, "profiled": profiled, "steps": []}
+        if poll_s is None:
+            ended = self.done.wait(timeout)
+        else:
+            t0 = time.perf_counter()
+            while not self.done.is_set() and time.perf_counter() - t0 < timeout:
+                time.sleep(poll_s)
+            ended = self.done.is_set()
+        if not ended:
+            raise AssertionError("7(b): a window of steps did not end")
+        return self.result
+
+    def close(self):
+        del self.eng.step
+
+
+def device_time_us(prof) -> float:
+    """Device time of the kernels, copies and fills in a profile's trace."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    return sum(e.get("dur", 0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def threaded_serve(torch, serve_mod, cfg, params, args, decode_phase3):
+    """Phase 7(b): the threaded runtime with the metrics server on
+    127.0.0.1 (an ephemeral port).  8 offline jobs (64-token prompts:
+    phase 3's profiled decode batch) first decode on the engine alone, 12
+    steps timed on this thread; then ``start()`` takes them over and their
+    decode steps are measured while the runtime runs (``StepWindows``: 12
+    steps with this thread blocked, 12 with it polling every 5 ms, 6
+    profiled).  Then, through a ``Frontend``, 4 streams with a consumer
+    thread each and one ``submit_batch`` of 4 offline jobs; the metrics text
+    and ``/health`` scraped; ``stop(drain=True)``.  Each stream must receive
+    exactly its request's tokens and every request must finish."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.request import Phase, Priority, Request
+    from repro_torch.serving.api import Frontend
+    from repro_torch.serving.runtime import CoServingRuntime
+
+    eng = serve_mod.wallclock_engine(cfg, params, args, max_model_len=WALL_CONTEXT)
+    rng = np.random.default_rng(11)
+    first = [Request(Priority.OFFLINE, prompt_len=64, max_new_tokens=64,
+                     prompt=rng.integers(0, cfg.vocab_size, 64).astype(np.int32))
+             for _ in range(8)]
+    for r in first:
+        eng.submit(r)
+    while any(r.phase != Phase.DECODE for r in first):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(12):
+        eng.step()
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - t0) / 12 * 1e3
+    windows = StepWindows(torch, eng)
+    rt = CoServingRuntime(eng)
+    fe = Frontend(rt, clock=rt.now)
+    srv = serve_mod.metrics_server(rt.registry, 0, health_cb=rt.check_health)
+    port = srv.server_address[1]
+    received, consumers, handles = {}, [], []
+
+    def consume(h):
+        received[h.request.request_id] = list(h)
+
+    def figures(w):
+        return statistics.mean(w["steps"]) * 1e3, w["wall"] / len(w["steps"]) * 1e3
+
+    rt.start()
+    try:
+        quiet = figures(windows.measure(n=12))
+        polled = figures(windows.measure(n=12, poll_s=0.005))
+        prof = windows.measure(profiled=True)
+        decoding = all(r.phase == Phase.DECODE for r in first)
+        busy = prof["device_us"] / len(prof["steps"]) / 1e3
+        log(f"  decode steps of 8 offline requests (host clock): {alone:.2f} ms per step on the "
+            f"engine alone (12 steps, this thread); under the threaded runtime with the metrics "
+            f"server up, step() {quiet[0]:.2f} ms and loop period {quiet[1]:.2f} ms with this "
+            f"thread blocked, step() {polled[0]:.2f} ms and period {polled[1]:.2f} ms with it "
+            f"polling every 5 ms (12 steps each); device busy "
+            + (f"{busy:.2f} ms per step = {busy / quiet[1]:.1%} of the quiet period (6 profiled "
+               f"steps, period {figures(prof)[1]:.2f} ms)" if busy > 0 else
+               "not measured (no device time in the profile)")
+            + f"; all 8 still decoding after the windows: {decoding}")
+        log(f"  phase 3's fused decode steps (engine alone): {decode_phase3}")
+        for _ in range(4):
+            h = fe.stream(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), MAX_NEW)
+            th = threading.Thread(target=consume, args=(h,), daemon=True)
+            th.start()
+            consumers.append(th)
+            handles.append(h)
+        job = fe.submit_batch([rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+                               for _ in range(4)], max_new_tokens=MAX_NEW)
+        code, text = http_get(f"http://127.0.0.1:{port}/")
+        hcode, health = http_get(f"http://127.0.0.1:{port}/health")
+    finally:
+        rt.stop(drain=True, timeout=300.0)
+        srv.shutdown()
+        srv.server_close()
+        windows.close()
+    for th in consumers:
+        th.join(timeout=60.0)
+    alive = sum(th.is_alive() for th in consumers)
+    lines = dict(line.split(" ", 1) for line in text.splitlines() if " " in line)
+    log(f"  scrape: metrics {code}, {len(lines)} series (iterations_total "
+        f"{lines.get('iterations_total')}, running_seqs {lines.get('running_seqs')}); "
+        f"/health {hcode}: {health.strip()!r}")
+    if code != 200 or "iterations_total" not in lines:
+        raise AssertionError(f"7(b): metrics scrape returned {code}")
+    if hcode != 200 or not health.startswith("health HEALTHY"):
+        raise AssertionError(f"7(b): /health returned {hcode} {health!r}")
+    lost = [h.request.request_id for h in handles
+            if received.get(h.request.request_id) != list(h.request.output_tokens)
+            or len(h.request.output_tokens) != MAX_NEW]
+    reqs = [h.request for h in handles] + list(job.requests) + first
+    unfinished = [r.request_id for r in reqs if r.phase != Phase.FINISHED
+                  or len(r.output_tokens) != r.max_new_tokens]
+    log(f"  streams: {len(handles)}, tokens received {sum(map(len, received.values()))} of "
+        f"{sum(len(h.request.output_tokens) for h in handles)}; consumers still alive {alive}; "
+        f"batch done={job.done}; {len(reqs)} requests; steps={eng.steps} "
+        f"health={rt.check_health()[0].name}")
+    if lost or alive:
+        raise AssertionError(f"7(b): streams that lost tokens {lost}, consumers alive {alive}")
+    if unfinished or not job.done:
+        raise AssertionError(f"7(b): unfinished requests {unfinished}")
+    if rt.check_health()[0].name == "FAILED":
+        raise AssertionError("7(b): runtime health FAILED")
+    del rt, eng
+    torch.cuda.empty_cache()
+
+
+def replay_fp32_tokens(torch, serve_mod, serial):
+    """Phase 7(c): phase 4's workload at fp32 (the same engine settings and
+    prompts) replayed through the runtime under a ManualClock with TTFT SLO
+    0: the offline jobs at t = 0, the online requests at REPLAY_ONLINE_AT.
+    At least one online arrival must abort a pure-offline batch at a
+    safepoint; every request's tokens must equal those of phase 4's serial
+    run up to the first near-tie."""
+    from repro_torch.core.request import Priority, Request
+    from repro_torch.core.slo import SLO
+    from repro_torch.serving.runtime import CoServingRuntime, ManualClock
+
+    args = serve_mod.build_parser().parse_args(
+        [a if a != "bfloat16" else "float32" for a in SERVE_ARGV])
+    cfg, eng = serve_mod.build_real_engine(args)
+    eng.margins = {}
+    eng.sched.slo = SLO(ttft=0.0, tpot=eng.sched.slo.tpot)
+    online, offline = serve_mod.real_prompts(args, cfg)
+    reqs = [Request(Priority.ONLINE, prompt_len=len(p), max_new_tokens=MAX_NEW, arrival_time=t,
+                    prompt=p) for t, p in zip(REPLAY_ONLINE_AT, online)]
+    reqs += [Request(Priority.OFFLINE, prompt_len=len(p), max_new_tokens=MAX_NEW, prompt=p)
+             for p in offline]
+    rt = CoServingRuntime(eng, clock=ManualClock(auto_tick=1e-3))
+    probe = AbortProbe(torch, eng)
+    t0 = time.perf_counter()
+    try:
+        m = rt.replay(reqs)
+        torch.cuda.synchronize()
+    finally:
+        probe.close()
+    check_served("7(c)", rt, m, reqs)
+    log(f"  {len(online)} online at manual t={list(REPLAY_ONLINE_AT)} s + {len(offline)} offline, "
+        f"pool {eng.ec.num_device_blocks} blocks: steps={eng.steps} safepoint_aborts="
+        f"{rt.stats.safepoint_aborts} preemptions={m.num_preemptions} restored_blocks="
+        f"{eng.restored_blocks}; {time.perf_counter() - t0:.1f} s (host clock)")
+    probe.report("7(c)")
+    if rt.stats.safepoint_aborts < 1:
+        raise AssertionError("7(c): no online arrival aborted a pure-offline batch")
+    got = [(list(r.output_tokens), eng.margins[r.request_id]) for r in reqs]
+    compare_runs("wall-clock runtime vs engine alone (fp32, every request)", got, serial)
+    del rt, eng, reqs
+    torch.cuda.empty_cache()
+
+
+def wallclock_phase(torch, ops, serve_mod, serial, decode_phase3):
+    """Phase 7: (a) bf16 replay, (b) threaded serving with the gateway,
+    (c) fp32 tokens of a replay with a safepoint abort.  Returns (a)'s
+    kernel launches."""
+    args = serve_mod.build_parser().parse_args(WALL_ARGV)
+    log("[7a] replay of a loadgen trace through CoServingRuntime, bf16, host clock")
+    cfg, params, counts = replay_bf16(torch, ops, serve_mod, args)
+    log("[7b] the threaded runtime behind a Frontend and the metrics server")
+    threaded_serve(torch, serve_mod, cfg, params, args, decode_phase3)
+    del params
+    torch.cuda.empty_cache()
+    log("[7c] fp32 replay with a safepoint abort against phase 4's serial tokens")
+    replay_fp32_tokens(torch, serve_mod, serial)
+    return counts
+
+
+def launch_cost_us(torch, n: int = 20000) -> float:
+    """Host time per launch of a small elementwise kernel (a chain of ``n``
+    adds on a 256 x 256 tensor, then a synchronisation): what the host
+    pays per operator, which sets the host-bound step."""
+    x = torch.zeros((256, 256), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x = x + 1.0
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
 def main() -> int:
     kernels_only = "--kernels-only" in sys.argv[1:]
+    # a torch.profiler session leaves CUPTI subscribed and every later launch
+    # pays for it unless the profiler tears CUPTI down: phases 3-3c and 7
+    # profile, and the phases after them time the host
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     try:
         import torch
     except ImportError:
@@ -1144,6 +1626,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    log(f"  host cost per launch {launch_cost_us(torch):.2f} us (before any profiler; "
+        f"TEARDOWN_CUPTI={os.environ['TEARDOWN_CUPTI']})")
     t0 = time.perf_counter()
     build.build_all()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
@@ -1174,7 +1658,8 @@ def main() -> int:
     log("[3] serve Llama-2-7B at full width through repro_torch.launch.serve.run_real")
     res, counts, args = run_serve(torch, ops, serve_mod, tf, SERVE_ARGV)
     uncalibrated = {"fused": iteration_figures(res["engine"])}
-    profile_steps(torch, res["engine"])
+    fused_decode = {"decode": "not measured (no profiler trace)"}
+    profile_steps(torch, res["engine"], figures=fused_decode)
     del res
     torch.cuda.empty_cache()
 
@@ -1210,6 +1695,11 @@ def main() -> int:
         log(f"  {name}: preemptions={res['preemptions']} steps={res['engine'].steps} "
             f"{res['generated'] / res['seconds']:.1f} tok/s")
         runs[name] = (res["preemptions"], offline_tokens(res))
+        if name == "preempted":  # every request's tokens, for phase 7(c)
+            eng = res["engine"]
+            serial = [(list(r.output_tokens), eng.margins[r.request_id])
+                      for r in [h.request for h in res["streams"]] + list(res["job"].requests)]
+            del eng
         del res
         torch.cuda.empty_cache()
     if (runs["preempted"][0] == 0 or runs["split preempted"][0] == 0
@@ -1241,6 +1731,15 @@ def main() -> int:
 
     log("[6] calibration of the three paths, then phase 3's workload on each")
     calibrated_serves(torch, serve_mod, uncalibrated)
+
+    log("[7] wall-clock co-serving: CoServingRuntime on the fused engine")
+    log(f"  host cost per launch {launch_cost_us(torch):.2f} us (after phases 3-3c's profiles)")
+    t7 = time.perf_counter()
+    wall_counts = wallclock_phase(torch, ops, serve_mod, serial, fused_decode["decode"])
+    for entry in line:
+        if entry["name"] in ("ragged_paged_attention", "checkpoint_gather"):
+            entry["launches_wallclock"] = wall_counts[entry["name"]]
+    log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -185,8 +185,12 @@ class UnifiedScheduler:
 
     @property
     def has_online_work(self) -> bool:
-        return bool(self.online_q) or any(
-            r.is_online for r in self.running if r.phase != Phase.FINISHED
+        return (
+            bool(self.online_q)
+            or any(
+                r.is_online for r in self.running if r.phase != Phase.FINISHED
+            )
+            or any(r.is_online for r in self.preempted)
         )
 
     def queue_depths(self) -> Tuple[int, int, int, int]:
@@ -223,9 +227,10 @@ class UnifiedScheduler:
         self, req: Request, new_total: int, plan: Optional[IterationPlan] = None
     ) -> bool:
         """Grow ``req`` to ``new_total`` tokens, preempting offline victims
-        under memory pressure.  Never preempts online requests, nor requests
-        already placed in the current plan.  Returns False if memory cannot
-        be found."""
+        under memory pressure, then -- for a running online ``req`` only --
+        younger online ones (``_pick_online_victim``).  Never preempts
+        requests already placed in the current plan.  Returns False if
+        memory cannot be found."""
         planned_ids = set()
         if plan is not None:
             planned_ids = {r.request_id for r in plan.decode_reqs} | {
@@ -242,6 +247,8 @@ class UnifiedScheduler:
                     # pressure instead of raising into the engine loop
                     self.degraded["alloc_retry"] += 1
             victim = self._pick_memory_victim(exclude=req, planned=planned_ids)
+            if victim is None:
+                victim = self._pick_online_victim(req, planned_ids)
             if victim is None:
                 return False
             self._preempt_offline(victim)
@@ -277,6 +284,8 @@ class UnifiedScheduler:
                     exclude=req, planned=planned_ids
                 )
                 if victim is None:
+                    victim = self._pick_online_victim(req, planned_ids)
+                if victim is None:
                     return False
                 self._preempt_offline(victim)
                 if plan is not None:
@@ -309,8 +318,30 @@ class UnifiedScheduler:
             return ckpt[-1]
         return offline_running[-1]
 
+    def _pick_online_victim(
+        self, req: Request, planned: set
+    ) -> Optional[Request]:
+        """Online victim for a *running* online request that cannot grow
+        once no offline victim is left: the most recently admitted running
+        online request admitted after ``req`` (``running`` order; a resumed
+        request re-enters at its end) and not yet in the plan.  Never
+        ``req`` itself, never an older request, and never for a waiting
+        request's admission, so the oldest running online request can
+        always take the whole pool and every online request finishes.
+        Without it, online requests that together exceed the pool wait for
+        each other forever."""
+        if not req.is_online or req not in self.running:
+            return None
+        younger = self.running[self.running.index(req) + 1 :]
+        for r in reversed(younger):
+            if r.is_online and r.request_id not in planned:
+                return r
+        return None
+
     def _preempt_offline(self, req: Request) -> None:
-        """PREEMPTSCHEDULING (Alg. 1 line 29): discard or swap out."""
+        """PREEMPTSCHEDULING (Alg. 1 line 29): discard or swap out.  Also
+        preempts an online victim of ``_pick_online_victim``, which resumes
+        through the same recompute path ahead of offline work."""
         if req not in self.running:
             raise AssertionError(
                 f"preempting non-resident request {req.request_id}"
@@ -430,6 +461,11 @@ class UnifiedScheduler:
         scheduled = self._schedule_prefills(
             plan, online_prefill, budget, scheduled, now
         )
+        # online requests preempted by an older online one that could not
+        # grow come back before new online work and before any offline work
+        scheduled = self._resume_preempted(
+            plan, budget, scheduled, now, online=True
+        )
         admitted = self._admit_waiting(
             plan, self.online_q, budget, scheduled, now
         )
@@ -469,7 +505,9 @@ class UnifiedScheduler:
         )
         # resume preempted offline before admitting fresh ones (fairness +
         # bounded recompute debt)
-        scheduled = self._resume_preempted(plan, budget, scheduled, now)
+        scheduled = self._resume_preempted(
+            plan, budget, scheduled, now, online=False
+        )
         scheduled = self._admit_waiting(
             plan, self.offline_q, budget, scheduled, now
         )
@@ -572,12 +610,16 @@ class UnifiedScheduler:
         budget: TokenBudget,
         scheduled: int,
         now: float,
+        online: bool = False,
     ) -> int:
-        """Bring preempted offline requests back: swap-in is planned by the
-        checkpointer/prefetcher; recompute-needed tokens re-enter as prefill
-        chunks here."""
+        """Bring preempted requests of one class back (``online``): swap-in
+        is planned by the checkpointer/prefetcher; recompute-needed tokens
+        re-enter as prefill chunks here."""
         still: List[Request] = []
         for r in self.preempted:
+            if r.is_online != online:
+                still.append(r)
+                continue
             room = budget.remaining(scheduled)
             if room <= 0 or not self.blocks.can_resume(r.request_id):
                 still.append(r)

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -31,6 +32,9 @@ SOURCES = ("ragged_paged_attention", "paged_attention", "checkpoint_gather",
            "flash_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one loader at a time: the wall-clock runtime's engine thread and the
+# caller's thread may both reach a first launch
+_load_lock = threading.Lock()
 # what ptxas said about each kernel (registers, shared memory, spills)
 build_logs: Dict[str, str] = {}
 
@@ -97,8 +101,12 @@ def build_all(names: List[str] = SOURCES) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _loaded[name] = lib
+        return lib

@@ -81,12 +81,14 @@ def flash_attention(
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    rc = _lib()(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, tq, tk, h, hkv, d, q.stride(0), k.stride(0), int(q_offset), int(bool(causal)),
-        int(sliding_window), float(d) ** -0.5, float(logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # CUDA launches on the calling thread's current device: make it q's
+    with torch.cuda.device(q.device):
+        rc = _lib()(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, tq, tk, h, hkv, d, q.stride(0), k.stride(0), int(q_offset), int(bool(causal)),
+            int(sliding_window), float(d) ** -0.5, float(logit_softcap),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"flash_attention: CUDA error {rc} at launch")
     flash_attention.launches += 1

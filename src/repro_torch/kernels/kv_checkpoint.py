@@ -63,10 +63,12 @@ def checkpoint_gather(
         return out
     if k > 65535 or periods > 65535:
         raise ValueError("checkpoint_gather: too many ids or periods for the grid")
-    rc = _lib()(
-        pool.data_ptr(), block_ids.data_ptr(), out.data_ptr(), periods, n, k,
-        page_bytes, torch.cuda.current_stream(pool.device).cuda_stream,
-    )
+    # CUDA launches on the calling thread's current device: make it the pool's
+    with torch.cuda.device(pool.device):
+        rc = _lib()(
+            pool.data_ptr(), block_ids.data_ptr(), out.data_ptr(), periods, n, k,
+            page_bytes, torch.cuda.current_stream(pool.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"checkpoint_gather: CUDA error {rc} at launch")
     checkpoint_gather.launches += 1

@@ -85,13 +85,15 @@ def ragged_paged_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    rc = _lib()(
-        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), q_positions.data_ptr(), kv_lens.data_ptr(),
-        out.data_ptr(), s, qmax, h, hkv, d, page, block_tables.shape[1],
-        float(d) ** -0.5, float(logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # CUDA launches on the calling thread's current device: make it q's
+    with torch.cuda.device(q.device):
+        rc = _lib()(
+            _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), q_positions.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), s, qmax, h, hkv, d, page, block_tables.shape[1],
+            float(d) ** -0.5, float(logit_softcap),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention: CUDA error {rc} at launch")
     ragged_paged_attention.launches += 1
@@ -210,15 +212,17 @@ def paged_attention(
         if nsplit > 1:  # fp32 partials, from the caching allocator on this stream
             part_o = torch.empty((nsplit, b, h, d), dtype=torch.float32, device=q.device)
             part_ml = torch.empty((nsplit, b, h, 2), dtype=torch.float32, device=q.device)
-    rc = _decode_lib()(
-        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        None if part_o is None else part_o.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
-        b, h, hkv, d, page, m, nsplit, split_keys,
-        float(d) ** -0.5, float(logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # CUDA launches on the calling thread's current device: make it q's
+    with torch.cuda.device(q.device):
+        rc = _decode_lib()(
+            _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            b, h, hkv, d, page, m, nsplit, split_keys,
+            float(d) ** -0.5, float(logit_softcap),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"paged_attention: CUDA error {rc} at launch")
     paged_attention.launches += 1

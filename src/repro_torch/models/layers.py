@@ -138,8 +138,8 @@ def dense_attention(
     to its blockwise jnp form above 1024 tokens and notes that the Pallas
     flash kernel replaces it on the TPU; the port keeps no second plain
     version.)  Queries and keys sit at positions 0..T-1, as ``forward_full``
-    builds them; cross-attention (``kv_src``) belongs to ROADMAP Queue 1
-    item 9."""
+    builds them; cross-attention (``kv_src``) belongs to ROADMAP Queue 1,
+    the contiguous fallback's other archs."""
     q, k, v = project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)

@@ -16,7 +16,8 @@ updates and merges functional copies.
 
 Only architectures whose every layer is plain causal full attention with a
 dense MLP run here; the other families (SSM, MoE, cross-attention, sliding
-windows, encoders, VLMs) are ROADMAP Queue 1 item 9.
+windows, encoders, VLMs) are ROADMAP Queue 1's item on the contiguous
+fallback's other archs.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ from .layers import (
 )
 
 PyTree = Any
+# where the refusals of the other architectures point
+ARCHS_ITEM = "ROADMAP Queue 1: the contiguous fallback's other archs"
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -62,7 +65,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs only dense causal full-attention "
             "stacks, paged or contiguous (SSM, MoE, cross-attention, sliding "
-            "windows, encoders and VLMs: ROADMAP Queue 1 item 9)"
+            f"windows, encoders and VLMs: {ARCHS_ITEM})"
         )
 
 
@@ -168,8 +171,8 @@ def init_caches(
     for i, spec in enumerate(cfg.layer_pattern()):
         if spec.mixer != MIXER_ATTN:
             raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer} caches are not ported yet (ROADMAP "
-                "Queue 1 item 9)"
+                f"{cfg.name}: {spec.mixer} caches are not ported yet "
+                f"({ARCHS_ITEM})"
             )
         one = KVCache.init(batch, cap, cfg.num_kv_heads, cfg.resolved_head_dim,
                            dtype, device)

@@ -81,7 +81,10 @@ from ..models.sampling import SamplingParams, sample
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device must exist (there is
-    no silent fallback to the CPU)."""
+    no silent fallback to the CPU).  A CUDA device without an index gets the
+    calling thread's current one, so the engine's tensors stay on that card
+    when another thread (the wall-clock runtime's engine thread, whose
+    current device is its own) drives it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -89,6 +92,8 @@ def resolve_device(device) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -144,17 +149,19 @@ class RealEngine:
             raise ValueError(f"{cfg.name}: arch cannot run the paged backend")
         # every arch the port runs is a dense causal full-attention stack,
         # which runs paged or contiguous; the others fall back to the
-        # contiguous layout in the reference and raise here (item 9)
+        # contiguous layout in the reference and raise here (ROADMAP Queue 1,
+        # the contiguous fallback's other archs)
         tf._check_supported(cfg)
         self.paged = eng_cfg.backend != "contiguous"
         if eng_cfg.pipeline:
             raise NotImplementedError(
-                "the async pipeline is not ported yet (ROADMAP Queue 1 item 6)"
+                "the async pipeline is not ported yet (ROADMAP Queue 1: the "
+                "async pipeline)"
             )
         if eng_cfg.mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving is not ported yet (ROADMAP Queue 1 "
-                "item 8)"
+                "tensor-parallel serving is not ported yet (ROADMAP Queue 1: "
+                "tensor parallelism)"
             )
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -225,6 +232,9 @@ class RealEngine:
         self.host_gap_s: List[float] = []
         self.host_gap_count = 0
         self.host_gap_seconds = 0.0
+        # staged batches invalidated before dispatch: the async pipeline is
+        # not ported, so this stays 0 (read by the wall-clock runtime)
+        self.pipeline_discards = 0
         self.measured_iter_seconds = 0.0
         self.predicted_iter_seconds = 0.0
         self.measured_iters = 0
@@ -443,6 +453,13 @@ class RealEngine:
         raise InjectedFault(
             f"injected engine-fatal dispatch fault at step {self.steps}"
         )
+
+    def flush_pipeline(self) -> None:
+        """Drain the engine's asynchronous artifacts before the wall-clock
+        runtime reads metrics and tokens.  The serial engine has none: each
+        step reads its sampled tokens back and synchronises its checkpoint
+        copies, so this is a no-op (the async pipeline is ROADMAP Queue 1's
+        item)."""
 
     def recover_from_fault(self) -> None:
         """Roll back to the pre-iteration cut after an exception escaped
@@ -704,7 +721,7 @@ class RealEngine:
             self._last_event = None  # the readback above drained the device
         elif self.device.type == "cuda":
             self._last_event = torch.cuda.Event()
-            self._last_event.record()
+            self._last_event.record(torch.cuda.current_stream(self.device))
         self._t_last_enqueue = time.perf_counter()
         return False
 
@@ -840,7 +857,7 @@ class RealEngine:
             if not self.cfg.causal:
                 # the reference runs an encoder job as one forward_full
                 raise NotImplementedError(
-                    "encoder prefill is not ported yet (ROADMAP Queue 1 item 9)"
+                    f"encoder prefill is not ported yet ({tf.ARCHS_ITEM})"
                 )
             toks = self._tokens_of(r)[chunk.offset : chunk.offset + chunk.length]
             if rid not in self.caches:
@@ -920,7 +937,7 @@ class RealEngine:
         if grid.pipeline_depth != 1:
             raise NotImplementedError(
                 "pipelined calibration needs the async pipeline, not ported "
-                "yet (ROADMAP Queue 1 item 6)"
+                "yet (ROADMAP Queue 1: the async pipeline)"
             )
         dev = self.device
         max_ctx = self.ec.max_model_len

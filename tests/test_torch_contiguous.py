@@ -151,7 +151,7 @@ def test_contiguous_backend_refusals():
     cfg = get_config_t("llama-2-7b").reduced()
     params = bridge.to_torch(_weights("llama-2-7b")[2])
     windowed = dataclasses.replace(cfg, sliding_window=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1: the contiguous fallback's other archs"):
         engine_t.RealEngine(windowed, params, device="cpu")  # backend="auto"
     with pytest.raises(ValueError, match="paged"):
         engine_t.RealEngine(windowed, params, device="cpu",

@@ -162,9 +162,10 @@ def test_engine_refuses_what_is_not_ported():
     cfg = get_config_t("llama-2-7b").reduced()
     params = bridge.to_torch(_weights("llama-2-7b")[2])
     windowed = dataclasses.replace(cfg, sliding_window=8)  # a ring cache
-    for c, kw, item in [(cfg, dict(pipeline=True), "item 6"),
-                        (cfg, dict(mesh=object()), "item 8"),
-                        (windowed, dict(backend="contiguous"), "item 9")]:
+    for c, kw, item in [(cfg, dict(pipeline=True), "Queue 1: the async pipeline"),
+                        (cfg, dict(mesh=object()), "Queue 1: tensor parallelism"),
+                        (windowed, dict(backend="contiguous"),
+                         "Queue 1: the contiguous fallback's other archs")]:
         with pytest.raises(NotImplementedError, match=item):
             engine_t.RealEngine(c, params, eng_cfg=engine_t.RealEngineConfig(**kw),
                                 device="cpu")

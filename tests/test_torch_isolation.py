@@ -16,6 +16,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch.serving.real_engine, repro_torch.launch.serve\n"
+        "import repro_torch.serving.runtime, repro_torch.serving.metrics\n"
+        "import repro_torch.serving.loadgen\n"
         "import repro_torch.bridge, repro_torch.kernels.ops\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "(m.split('.')[0] in ('jax', 'jaxlib', 'repro'))]\n"

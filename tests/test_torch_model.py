@@ -338,7 +338,7 @@ def test_split_entry_points_match_reference(arch):
                         _t(lens)[:, None], mode="full")
 
 
-# ------------------------------------------------- contiguous caches (item 9)
+# ------------------------- contiguous caches (Queue 1: the contiguous fallback)
 def _filled_cache(cfg, b, cap, fill, seed):
     """A reference cache whose slots 0..fill[i]-1 of row i hold random K/V at
     positions 0..fill[i]-1 (a full cache filled chunk by chunk), the rest

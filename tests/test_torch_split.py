@@ -118,5 +118,5 @@ def test_default_grid_covers_the_serve_time_buckets():
     assert g.prefill_batches == (1, 2, 4, 8)
     assert g.decode_buckets == tuple(2**i for i in range(9))  # up to 256
     assert g.token_buckets == () and fused._default_grid().token_buckets == (64, 128)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1: the async pipeline"):
         split.calibrate(dataclasses.replace(GRID, pipeline_depth=4))
