@@ -78,6 +78,26 @@ any failure exits non-zero before the result lines:
    safepoints: at least one abort, and every request's tokens equal phase
    4's serial run's up to the first near-tie.  The kernel line carries (a)'s
    launches of the ragged attention and checkpoint gather kernels.
+8. Tensor-parallel paged serving (DESIGN.md §11) on a ``ServingMesh`` of
+   two shards on this one card (``make_serving_mesh(2, devices=[dev,
+   dev])``): each shard holds 16 of Llama-2-7B's 32 KV heads in pools of its
+   own and launches the attention kernels on them.  (a) Both sharded
+   functions at tp 2 and 4, fp32 and bf16, on the Llama-2-7B and Qwen2-0.5B
+   shapes, against the unsharded plain version at TOL (Qwen2-0.5B's 2 KV
+   heads at tp 4 must take the unsharded fallback; decode key splits are
+   logged per shard).  (b) Phase 3's workload at bf16 on the fused and the
+   split path at tp 2: launches counted (per-shard ragged launches = 2 x 32
+   x iterations), preemption, checkpoint and restore counts, each shard's
+   pool, the decode steps profiled beside phases 3 and 3b's, and dispatches
+   that must not synchronise with the host.  (c) Phase 4's preempted
+   workload at fp32, fused and split at tp 2: every request's tokens equal
+   phase 4's tp = 1 run's up to the first near-tie, and every block the
+   ``HostKVStore`` takes holds all 32 KV heads.  (d) ``calibrate()`` on the
+   tp = 2 fused engine, its profile beside phase 6's.  (e) With two or more
+   cards, (b) again across two of them; otherwise a line says why not.
+   The kernel line gains ``ragged_paged_attention_sharded`` and
+   ``paged_attention_sharded``, timed at (b)'s heaviest calls (one sharded
+   call and one shard's launch).
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -515,23 +535,24 @@ class Capture:
 
 class PagesRead:
     """Size of an attention call: the K/V pages it reads, the sum over
-    sequences of ceil(kv_len / page), from the last argument (``kv_lens``,
-    or the decode kernel's ``seq_lens``).  The layers of one dispatch share
-    one block-table tensor, so the lengths are read back once per dispatch."""
+    sequences of ceil(kv_len / page), from the argument at ``lens_at``
+    (``kv_lens``, or the decode kernel's ``seq_lens``: the last one, or the
+    one before a sharded call's mesh).  The layers of one dispatch share one
+    block-table tensor, so the lengths are read back once per dispatch."""
 
-    def __init__(self):
-        self.key, self.pages = None, 0
+    def __init__(self, lens_at: int = -1):
+        self.key, self.pages, self.lens_at = None, 0, lens_at
 
     def __call__(self, q, kp, vp, tb, *rest):
         if tb is not self.key:
-            page, lens = kp.shape[1], rest[-1]
+            page, lens = kp.shape[1], rest[self.lens_at]
             self.key, self.pages = tb, int(((lens.long() + page - 1) // page).sum())
         return self.pages
 
 
-def serve(serve_mod, argv):
+def serve(serve_mod, argv, mesh=None):
     args = serve_mod.build_parser().parse_args(argv)
-    return serve_mod.run_real(args, record_margins=True)
+    return serve_mod.run_real(args, record_margins=True, mesh=mesh)
 
 
 def offline_tokens(res):
@@ -591,9 +612,21 @@ def flash_clone(q, k, v, **kw):
             dict(dict(causal=True, sliding_window=0, q_offset=0, logit_softcap=0.0), **kw))
 
 
-def run_serve(torch, ops, serve_mod, tf, argv):
-    """Phases 3-3c: one serve run at full width, every kernel captured and
-    counted (counts zeroed just before, read just after)."""
+def sharded_clone(q, kp, vp, tb, *rest, logit_softcap=0.0):
+    """A clone of a sharded attention call's arguments: the pools' parts
+    cloned, the mesh (the last argument) kept."""
+    def parts(hs):
+        return type(hs)([p.clone() for p in hs.parts], hs.heads, hs.sharded)
+
+    return (q.clone(), parts(kp), parts(vp), tb.clone(),
+            *(t.clone() for t in rest[:-1]), rest[-1], logit_softcap)
+
+
+def run_serve(torch, ops, serve_mod, tf, argv, mesh=None):
+    """Phases 3-3c and 8(b): one serve run at full width, every kernel
+    captured and counted (counts zeroed just before, read just after); on a
+    tensor-parallel ``mesh`` the sharded attention calls too, each of which
+    must have launched the kernel once per shard."""
     caps = {
         "flash_attention": Capture(
             ops.flash_attention, lambda q, k, v: q.shape[1] * k.shape[1], flash_clone),
@@ -610,11 +643,14 @@ def run_serve(torch, ops, serve_mod, tf, argv):
             ops.checkpoint_gather, lambda pool, ids: ids.numel(),
             lambda pool, ids, out=None: (pool.clone(), ids.clone())),
     }
+    if mesh is not None:
+        for name in ("ragged_paged_attention_sharded", "paged_attention_sharded"):
+            caps[name] = Capture(getattr(ops, name), PagesRead(-2), sharded_clone)
     for name, cap in caps.items():
         setattr(ops, name, cap)
     try:
         ops.reset_launch_counts()
-        res = serve(serve_mod, argv)
+        res = serve(serve_mod, argv, mesh)
         counts = ops.launch_counts()
         counts["paged_attention merges"] = ops.KERNELS["paged_attention"].merge_launches
     finally:
@@ -639,6 +675,17 @@ def run_serve(torch, ops, serve_mod, tf, argv):
         raise AssertionError(f"requests without all their tokens: {short}")
     per_segment = cfg.num_layers // len(tf.segment_spans(cfg))
     d = eng.dispatches
+    # attention calls of the path: the sharded wrapper's on a mesh, each of
+    # which launched the kernel once per shard
+    calls = {name: counts[name] for name in ("ragged_paged_attention", "paged_attention")}
+    if mesh is not None:
+        for name in calls:
+            sharded = f"{name}_sharded"
+            calls[name] = counts[sharded]
+            if (counts[f"{sharded} fallbacks"] or counts[name] != counts[f"{sharded} shard_launches"]
+                    or counts[name] != mesh.tp * counts[sharded]):
+                raise AssertionError(f"{sharded}: {counts[sharded]} calls did not launch "
+                                     f"{name} once per shard ({counts[name]} launches)")
     if eng.paged and counts["flash_attention"] != 0:
         raise AssertionError("a paged path launched the flash attention kernel")
     if not eng.paged:
@@ -649,17 +696,17 @@ def run_serve(torch, ops, serve_mod, tf, argv):
         if d["decode"] + d["segment"] == 0:
             raise AssertionError("the contiguous path ran no decode dispatch")
     elif eng.fused:
-        if counts["ragged_paged_attention"] != per_segment * d["fused_segment"]:
+        if calls["ragged_paged_attention"] != per_segment * d["fused_segment"]:
             raise AssertionError("ragged_paged_attention launches != layers of the segments run")
-        if counts["ragged_paged_attention"] < cfg.num_layers * (eng.steps - aborts):
+        if calls["ragged_paged_attention"] < cfg.num_layers * (eng.steps - aborts):
             raise AssertionError("ragged_paged_attention launched fewer than 32 x completed steps")
         if counts["paged_attention"] != 0:
             raise AssertionError("the fused path launched the decode kernel")
     else:
-        if counts["paged_attention"] != cfg.num_layers * d["decode"] + per_segment * d["segment"]:
+        if calls["paged_attention"] != cfg.num_layers * d["decode"] + per_segment * d["segment"]:
             raise AssertionError("paged_attention launches != 32 x decode dispatches + "
                                  "layers per segment x segment dispatches")
-        if counts["paged_attention"] == 0 or d["prefill"] == 0:
+        if calls["paged_attention"] == 0 or d["prefill"] == 0:
             raise AssertionError("the split path ran no decode or no prefill dispatch")
         if counts["ragged_paged_attention"] != 0:
             raise AssertionError("the split path launched the ragged kernel")
@@ -670,20 +717,24 @@ def run_serve(torch, ops, serve_mod, tf, argv):
 
 
 def check_reads_nothing_back(torch, tf, eng):
-    """The split and contiguous paths' dispatches read nothing back to the
-    host, under ``torch.cuda.set_sync_debug_mode("error")`` (a synchronising
-    call raises).  Split: one ``prefill_chunk_paged`` and one
-    ``decode_step_paged`` on the served engine's pools, every row on the
-    scratch block.  Contiguous: two ``prefill_chunk`` dispatches (the second
-    behind the first, so the flash kernel reads a cached prefix) and one
-    ``decode_step`` on a fresh cache."""
+    """The served paths' dispatches read nothing back to the host, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a synchronising call
+    raises).  Fused (phase 8): one whole fused dispatch of 4 prefill chunks
+    and 4 decodes.  Split: one ``prefill_chunk_paged`` and one
+    ``decode_step_paged`` on the served engine's pools (over its mesh, if
+    it has one), every row on the scratch block.  Contiguous: two
+    ``prefill_chunk`` dispatches (the second behind the first, so the flash
+    kernel reads a cached prefix) and one ``decode_step`` on a fresh cache."""
     import numpy as np
 
     b, scratch = 8, eng._scratch_block
     toks = eng._put(np.zeros((b, 32), np.int32))
     last = eng._put(np.full((b,), 31, np.int32))
     lens = eng._put(np.full((b,), 100, np.int32))
-    if eng.paged:
+    if eng.fused:
+        ftoks, ftables, fpos, meta, logit_idx = eng._fused_inputs(eng._build_ragged(
+            [(32, 0, None, None)] * 4 + [(1, 100, None, None)] * 4))
+    elif eng.paged:
         tables = eng._put(np.full((b, eng._table_width), scratch, np.int32))
         offs = eng._put(np.zeros((b,), np.int32))
     else:
@@ -691,9 +742,17 @@ def check_reads_nothing_back(torch, tf, eng):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        if eng.paged:
-            tf.prefill_chunk_paged(eng.cfg, eng.params, toks, eng.pools, tables, offs, last)
-            tf.decode_step_paged(eng.cfg, eng.params, offs, eng.pools, tables, lens)
+        if eng.fused:
+            x = tf.embed(eng.cfg, eng.params, ftoks[None])
+            for lo, pps in tf.segment_spans(eng.cfg):
+                x, _ = tf.run_tokens_paged_at(eng.cfg, eng.params, pps, lo, x, eng.pools,
+                                              ftables, fpos, meta, mesh=eng.mesh)
+            tf.ragged_lm_head(eng.cfg, eng.params, x, logit_idx)
+        elif eng.paged:
+            tf.prefill_chunk_paged(eng.cfg, eng.params, toks, eng.pools, tables, offs, last,
+                                   mesh=eng.mesh)
+            tf.decode_step_paged(eng.cfg, eng.params, offs, eng.pools, tables, lens,
+                                 mesh=eng.mesh)
         else:
             tf.prefill_chunk(eng.cfg, eng.params, toks, caches, [0] * b)
             tf.prefill_chunk(eng.cfg, eng.params, toks, caches, [32] * b)
@@ -701,8 +760,7 @@ def check_reads_nothing_back(torch, tf, eng):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"  {path_of(eng)} prefill and decode dispatches ran under sync debug mode 'error': "
-        "no host read-back")
+    log(f"  {path_of(eng)} dispatches ran under sync debug mode 'error': no host read-back")
 
 
 def time_decode_stacking(torch, eng, n: int = 12):
@@ -1110,33 +1168,43 @@ def add_build_reports(build, builds, line, ragged_args, decode_args):
                 r["dynamic_smem_at"] = {"group": group, "table_width": split_m}
 
 
+def calibrated_serve(torch, serve_mod, path, argv, mesh=None) -> str:
+    """Calibrate a bf16 engine (``--calibrate``), print its profile, and
+    serve phase 3's workload on it; returns the profile as text."""
+    names = ("c0 (s)", "prefill token", "prefill attention token", "decode token",
+             "decode context token")
+    t0 = time.perf_counter()
+    res = serve(serve_mod, argv + ["--calibrate"], mesh)
+    eng = res["engine"]
+    prof = eng.profile
+    if prof is None or eng.sched.model is not prof:
+        raise AssertionError(f"{path}: calibrate() installed no measured profile")
+    coef = ", ".join(f"{n} {c:.4g}" for n, c in zip(names, prof._coef))
+    text = (f"{len(prof.samples)} probes + {len(prof.swap_samples)} swap probes; "
+            f"profile s/iteration = {coef}; swap "
+            f"{None if prof._swap_coef is None else prof._swap_coef.tolist()}")
+    log(f"  {path}: {text}; calibration and serving took {time.perf_counter() - t0:.1f} s")
+    reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
+    if any(len(r.output_tokens) != MAX_NEW for r in reqs):
+        raise AssertionError(f"{path}: a request lacks tokens after calibration")
+    log(f"  {path} calibrated: {iteration_figures(eng)}")
+    del res, eng
+    torch.cuda.empty_cache()
+    return text
+
+
 def calibrated_serves(torch, serve_mod, uncalibrated):
     """Phase 6: calibrate a bf16 engine of each path, print its profile, and
     serve phase 3's workload on it; measured against predicted seconds per
-    iteration beside the uncalibrated runs' figures."""
-    names = ("c0 (s)", "prefill token", "prefill attention token", "decode token",
-             "decode context token")
+    iteration beside the uncalibrated runs' figures.  Returns the fused
+    path's profile as text."""
+    profiles = {}
     for path, extra in (("fused", []), ("split", ["--no-fused-batch"]),
                         ("contiguous", ["--backend", "contiguous"])):
-        t0 = time.perf_counter()
-        res = serve(serve_mod, SERVE_ARGV + extra + ["--calibrate"])
-        eng = res["engine"]
-        prof = eng.profile
-        if prof is None or eng.sched.model is not prof:
-            raise AssertionError(f"{path}: calibrate() installed no measured profile")
-        coef = ", ".join(f"{n} {c:.4g}" for n, c in zip(names, prof._coef))
-        log(f"  {path}: {len(prof.samples)} probes + {len(prof.swap_samples)} swap probes; "
-            f"profile s/iteration = {coef}; swap "
-            f"{None if prof._swap_coef is None else prof._swap_coef.tolist()}; "
-            f"calibration and serving took {time.perf_counter() - t0:.1f} s")
-        reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
-        if any(len(r.output_tokens) != MAX_NEW for r in reqs):
-            raise AssertionError(f"{path}: a request lacks tokens after calibration")
         phase = {"fused": "3", "split": "3b", "contiguous": "3c"}[path]
         log(f"  {path} uncalibrated (phase {phase}): {uncalibrated[path]}")
-        log(f"  {path} calibrated: {iteration_figures(eng)}")
-        del res, eng
-        torch.cuda.empty_cache()
+        profiles[path] = calibrated_serve(torch, serve_mod, path, SERVE_ARGV + extra)
+    return profiles["fused"]
 
 
 # ------------------------------------------------------------------- phase 7
@@ -1581,6 +1649,218 @@ def wallclock_phase(torch, ops, serve_mod, serial, decode_phase3):
     return counts
 
 
+# ------------------------------------------------------------------- phase 8
+def full_heads(torch, hs):
+    """Every head of a ``HeadSharded`` tensor, on its first shard's device."""
+    return torch.cat(hs.parts, dim=-2) if hs.sharded else hs.parts[0]
+
+
+def check_sharded_kernels(torch, rpa, make_mesh, place):
+    """Phase 8(a): both sharded functions at tp 2 and 4, fp32 and bf16, at
+    the Llama-2-7B (32 / 32 heads) and Qwen2-0.5B (14 / 2) shapes, on phase
+    2's cases, over this card named tp times, against the unsharded plain
+    version at TOL.  Each call must launch once per shard, except Qwen2-0.5B
+    at tp 4, whose 2 KV heads replicate: one unsharded launch (the
+    fallback).  The decode cases log their key splits per shard."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ragged, decode = rpa.ragged_paged_attention_sharded, rpa.paged_attention_sharded
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
+            for tp in (2, 4):
+                mesh = make_mesh(tp, devices=[dev] * tp)
+                shards = tp if hkv % tp == 0 else 0
+                for cap in (0.0, 30.0):
+                    calls = []
+                    for case, kw in RAGGED_CASES.items():
+                        q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d,
+                                                                     cap, 1, **kw)
+                        got = ragged(q, place(kp, mesh), place(vp, mesh), tb, qp, kvl, mesh,
+                                     logit_softcap=cap)
+                        want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl,
+                                                              logit_softcap=cap)
+                        calls.append((f"ragged {case}", got, want, got[-1]))
+                    for case, kw in DECODE_CASES.items():
+                        q, kp, vp, tb, lens, cap = decode_case(torch, dtype, h, hkv, d, cap, 4,
+                                                               **kw)
+                        got = decode(q, place(kp, mesh), place(vp, mesh), tb, lens, mesh,
+                                     logit_softcap=cap)
+                        want = rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)
+                        local = hkv // tp if shards else hkv
+                        splits = (rpa.decode_splits(q.shape[0], local, tb.shape[1] * kp.shape[1],
+                                                    sms) if dtype == torch.bfloat16 else (1, 0))
+                        calls.append((f"decode {case} (splits per shard {splits[0]})", got,
+                                      want, got[lens == 0]))
+                    torch.cuda.synchronize()
+                    for case, got, want, empty in calls:
+                        err = (got.float() - want.float()).abs().max().item()
+                        zero = empty.float().abs().max().item() if empty.numel() else 0.0
+                        log(f"  sharded {dname} {arch} H={h} Hkv={hkv} D={d} tp={tp} "
+                            f"{'sharded' if shards else 'fallback'} {case} softcap={cap:g}: "
+                            f"max_abs_err={err:.3e} empty rows max={zero:g}")
+                        if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero:
+                            raise AssertionError(f"sharded {case} disagrees ({dname}, {arch}, "
+                                                 f"tp={tp})")
+                for fn in (ragged, decode):
+                    n = len(RAGGED_CASES if fn is ragged else DECODE_CASES) * 2
+                    want = (n * shards, 0) if shards else (0, n)
+                    if (fn.shard_launches, fn.fallbacks) != want:
+                        raise AssertionError(f"{fn.__name__} tp={tp} {arch}: shard launches and "
+                                             f"fallbacks {(fn.shard_launches, fn.fallbacks)}, "
+                                             f"want {want}")
+                    fn.shard_launches = fn.fallbacks = 0
+
+
+def log_pools(torch, eng):
+    """Each shard's pool: one leaf's part shape and the bytes of all its
+    leaves."""
+    for s in range(eng.mesh.tp):
+        parts = [layer[kv].parts[s] for layer in eng.pools.values() for kv in ("k", "v")]
+        nbytes = sum(p.numel() * p.element_size() for p in parts)
+        log(f"  shard {s} on {parts[0].device}: pool leaf {tuple(parts[0].shape)} "
+            f"({eng.pools['0']['k'].heads} KV heads over {eng.mesh.tp} shards), "
+            f"{len(parts)} leaves, {nbytes / 1e9:.3f} GB")
+
+
+def tp_serves(torch, ops, serve_mod, tf, mesh, phase3, label="8b"):
+    """Phase 8(b): phase 3's workload at bf16 on the fused and the split path
+    over ``mesh``, counted as phases 3 and 3b are; each shard's pool, the
+    dispatches under sync debug mode "error", and the decode steps profiled
+    beside phase 3's and 3b's (``phase3``: path -> text).  Returns per path
+    (launch counts, captured arguments)."""
+    out = {}
+    for path, extra in (("fused", []), ("split", ["--no-fused-batch"])):
+        log(f"  [{label}] {path} path, tp={mesh.tp} on {[str(d) for d in mesh.devices]}")
+        res, counts, args = run_serve(torch, ops, serve_mod, tf, SERVE_ARGV + extra, mesh=mesh)
+        eng = res["engine"]
+        log_pools(torch, eng)
+        check_reads_nothing_back(torch, tf, eng)
+        figures = {"decode": "not measured (no profiler trace)"}
+        rows = profile_steps(torch, eng, figures=figures)
+        if path == "split":
+            check_split_decode_kernel(rows, res["cfg"])
+        log(f"  {path} decode steps: tp={mesh.tp} {figures['decode']}")
+        log(f"  {path} decode steps: tp=1 (phase {'3' if path == 'fused' else '3b'}) "
+            f"{phase3[path]}")
+        out[path] = (counts, args)
+        del res, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_fp32_tokens(torch, serve_mod, mesh, serial):
+    """Phase 8(c): phase 4's preempted workload at fp32, fused and split
+    over ``mesh``: every request's tokens against phase 4's tp = 1 fused
+    run's up to the first near-tie; every block the ``HostKVStore`` takes
+    must hold all the KV heads."""
+    from repro_torch.core.checkpoint import HostKVStore
+
+    argv32 = [a if a != "bfloat16" else "float32" for a in SERVE_ARGV]
+    put = HostKVStore.put
+    for path, extra in (("fused", []), ("split", ["--no-fused-batch"])):
+        heads = []
+
+        def counted_put(store, seq, idx, blk):
+            heads.extend(leaf.shape[-2] for layer in blk.values() for leaf in layer.values())
+            return put(store, seq, idx, blk)
+
+        HostKVStore.put = counted_put
+        try:
+            res = serve(serve_mod, argv32 + extra, mesh)
+        finally:
+            HostKVStore.put = put
+        eng, cfg = res["engine"], res["cfg"]
+        log(f"  tp={mesh.tp} {path} fp32: preemptions={res['preemptions']} steps={eng.steps} "
+            f"restored_blocks={eng.restored_blocks}; the HostKVStore took {len(heads)} block "
+            f"leaves, KV heads {sorted(set(heads))}")
+        if res["preemptions"] == 0 or not heads or set(heads) != {cfg.num_kv_heads}:
+            raise AssertionError(f"8(c) {path}: no preemption, or host blocks without all "
+                                 f"{cfg.num_kv_heads} KV heads")
+        got = [(list(r.output_tokens), eng.margins[r.request_id])
+               for r in [h.request for h in res["streams"]] + list(res["job"].requests)]
+        compare_runs(f"tp={mesh.tp} {path} vs tp=1 fused (phase 4), every request", got, serial)
+        del res, eng
+        torch.cuda.empty_cache()
+
+
+def sharded_entry(torch, rpa, name, args, counts, spec, timer):
+    """Phase 8's kernel-line entry of one sharded function at the heaviest
+    call captured while 8(b) ran: its error against the unsharded plain
+    version, the time of the sharded call and of one shard's launch, the
+    plain sharded version's time, and the bound of the bytes of all shards."""
+    *call, mesh, cap = args
+    q, kp, vp, tb, *rest = call
+    dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    ragged = name == "ragged_paged_attention_sharded"
+    fn = getattr(rpa, name)
+    plain = getattr(rpa, f"{name}_ref")
+    one = rpa.ragged_paged_attention if ragged else rpa.paged_attention
+    one_ref = rpa.ragged_paged_attention_ref if ragged else rpa.paged_attention_ref
+    head_axis = 2 if ragged else 1
+    got = fn(q, kp, vp, tb, *rest, mesh, logit_softcap=cap)
+    want = one_ref(q, full_heads(torch, kp), full_heads(torch, vp), tb, *rest, logit_softcap=cap)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL[dname]):
+        raise AssertionError(f"{name} disagrees at {tuple(q.shape)}: max_abs_err={err:.3e}")
+    if ragged:
+        bound, by = attention_bound(torch, q, kp, tb, rest[0], rest[1], PEAK_FLOPS[dname],
+                                    spec.hbm_bw)
+    else:
+        bound, by = decode_bound(torch, q, kp, tb, rest[0], PEAK_FLOPS[dname], spec.hbm_bw)
+    q0 = q.narrow(head_axis, 0, q.shape[head_axis] // mesh.tp).contiguous()
+    entry = {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{'ragged_paged_attention' if ragged else 'paged_attention'}.cu",
+        "replaces": f"src/repro/kernels/paged_attention.py:{294 if ragged else 341}",
+        "launches": counts[name], "shard_launches": counts[f"{name} shard_launches"],
+        "max_abs_err": err, "tp": mesh.tp,
+        **timed(timer, lambda: fn(q, kp, vp, tb, *rest, mesh, logit_softcap=cap)),
+        "shard_ms": timer.ms(lambda: one(q0, kp.parts[0], vp.parts[0], tb, *rest,
+                                         logit_softcap=cap)),
+        "plain_ms": timer.ms(lambda: plain(q, kp, vp, tb, *rest, mesh, logit_softcap=cap)),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": {"q": list(q.shape), "pool": list(kp.shape),
+                  "shard_pool": list(kp.parts[0].shape), "tables": list(tb.shape),
+                  "lens": rest[-1].tolist(), "dtype": dname},
+    }
+    if not ragged:
+        entry["splits_per_shard"] = decode_splits_of(torch, rpa, q0, kp.parts[0], tb)[0]
+    log(f"  {name}, heaviest tp={mesh.tp} call: {entry}")
+    return entry
+
+
+def tp_phase(torch, ops, rpa, serve_mod, tf, spec, timer, serial, phase3, fused_profile):
+    """Phase 8: tensor-parallel paged serving on two shards of this card.
+    Returns the kernel line's two sharded entries."""
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_serving_mesh(2, devices=[dev, dev])
+    log("[8a] the sharded kernels at tp 2 and 4 against the unsharded plain version")
+    check_sharded_kernels(torch, rpa, make_serving_mesh, place)
+    log("[8b] phase 3's workload at bf16 on two shards of this card")
+    served = tp_serves(torch, ops, serve_mod, tf, mesh, phase3)
+    log("[8c] phase 4's preempted workload at fp32 on two shards, against phase 4's tp = 1")
+    tp_fp32_tokens(torch, serve_mod, mesh, serial)
+    log("[8d] calibration of the tp = 2 fused engine")
+    text = calibrated_serve(torch, serve_mod, "fused tp=2", SERVE_ARGV, mesh)
+    log(f"  fused tp=1 (phase 6): {fused_profile}")
+    log(f"  fused tp=2: {text}")
+    log("[8e] tensor parallelism across cards")
+    if torch.cuda.device_count() >= 2:
+        tp_serves(torch, ops, serve_mod, tf, make_serving_mesh(2), phase3, label="8e")
+    else:
+        log(f"  not run: {torch.cuda.device_count()} CUDA device visible, and a mesh across "
+            "cards needs two")
+    entries = []
+    for name, path in (("ragged_paged_attention_sharded", "fused"),
+                       ("paged_attention_sharded", "split")):
+        counts, args = served[path]
+        entries.append(sharded_entry(torch, rpa, name, args[name], counts, spec, timer))
+    return entries
+
+
 def launch_cost_us(torch, n: int = 20000) -> float:
     """Host time per launch of a small elementwise kernel (a chain of ``n``
     adds on a 256 x 256 tensor, then a synchronisation): what the host
@@ -1659,6 +1939,7 @@ def main() -> int:
     res, counts, args = run_serve(torch, ops, serve_mod, tf, SERVE_ARGV)
     uncalibrated = {"fused": iteration_figures(res["engine"])}
     fused_decode = {"decode": "not measured (no profiler trace)"}
+    split_decode = dict(fused_decode)
     profile_steps(torch, res["engine"], figures=fused_decode)
     del res
     torch.cuda.empty_cache()
@@ -1668,7 +1949,8 @@ def main() -> int:
                                               SERVE_ARGV + ["--no-fused-batch"])
     uncalibrated["split"] = iteration_figures(res["engine"])
     check_reads_nothing_back(torch, tf, res["engine"])
-    check_split_decode_kernel(profile_steps(torch, res["engine"]), res["cfg"])
+    check_split_decode_kernel(profile_steps(torch, res["engine"], figures=split_decode),
+                              res["cfg"])
     del res
     torch.cuda.empty_cache()
 
@@ -1730,7 +2012,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[6] calibration of the three paths, then phase 3's workload on each")
-    calibrated_serves(torch, serve_mod, uncalibrated)
+    fused_profile = calibrated_serves(torch, serve_mod, uncalibrated)
 
     log("[7] wall-clock co-serving: CoServingRuntime on the fused engine")
     log(f"  host cost per launch {launch_cost_us(torch):.2f} us (after phases 3-3c's profiles)")
@@ -1740,6 +2022,13 @@ def main() -> int:
         if entry["name"] in ("ragged_paged_attention", "checkpoint_gather"):
             entry["launches_wallclock"] = wall_counts[entry["name"]]
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    log("[8] tensor-parallel paged serving: two KV-head shards on this card")
+    t8 = time.perf_counter()
+    line += tp_phase(torch, ops, rpa, serve_mod, tf, spec, timer, serial,
+                     {"fused": fused_decode["decode"], "split": split_decode["decode"]},
+                     fused_profile)
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -8,10 +8,12 @@ a tensor on ``device``, and the period-major stacking is kept as it is.
 A contiguous cache tree (``{pos: {"k", "v", "pos"}}``) keeps its int32
 slot positions as int32.  Tests use it so both packages compute with the
 same weights and caches, with nothing downloaded, and compare the results.
+``replicate`` places a tree on the devices of a tensor-parallel serving
+mesh, where params replicate (DESIGN.md §11).
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,3 +38,17 @@ def to_numpy(tree: Any) -> Any:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def replicate(tree: Any, devices: Sequence[torch.device]) -> List[Any]:
+    """One copy of a tree of tensors per distinct device of ``devices``,
+    listed per entry: entries naming one device share its copy (two shards
+    on one card hold one set of weights), and a tree already on a device is
+    not copied there."""
+    def move(t, dev):
+        if isinstance(t, dict):
+            return {k: move(v, dev) for k, v in t.items()}
+        return t.to(dev)
+
+    copies = {dev: move(tree, dev) for dev in dict.fromkeys(devices)}
+    return [copies[dev] for dev in devices]

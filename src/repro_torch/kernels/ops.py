@@ -19,14 +19,19 @@ from . import paged_attention as _attention
 from .ref import flash_attention_ref
 
 __all__ = ["ragged_paged_attention", "paged_attention", "checkpoint_gather",
-           "flash_attention", "reset_launch_counts", "launch_counts"]
+           "flash_attention", "ragged_paged_attention_sharded",
+           "paged_attention_sharded", "reset_launch_counts", "launch_counts"]
 
 KERNELS = {
     "ragged_paged_attention": _attention.ragged_paged_attention,
     "paged_attention": _attention.paged_attention,
     "checkpoint_gather": kv_checkpoint.checkpoint_gather,
     "flash_attention": _flash.flash_attention,
+    "ragged_paged_attention_sharded": _attention.ragged_paged_attention_sharded,
+    "paged_attention_sharded": _attention.paged_attention_sharded,
 }
+# the sharded wrappers' counts besides ``launches``
+SHARD_COUNTS = ("shard_launches", "fallbacks")
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -63,6 +68,24 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
     )
 
 
+def ragged_paged_attention_sharded(q, k_pool, v_pool, block_tables, q_positions,
+                                   kv_lens, mesh, *, logit_softcap=0.0):
+    """``ragged_paged_attention`` over a tensor-parallel mesh's KV-head
+    shards (DESIGN.md §11): q on the lead device, the pools ``HeadSharded``."""
+    fn = (_attention.ragged_paged_attention_sharded if _device_type(q) == "cuda"
+          else _attention.ragged_paged_attention_sharded_ref)
+    return fn(q, k_pool, v_pool, block_tables, q_positions, kv_lens, mesh,
+              logit_softcap=logit_softcap)
+
+
+def paged_attention_sharded(q, k_pool, v_pool, block_tables, seq_lens, mesh, *,
+                            logit_softcap=0.0):
+    """``paged_attention`` over a tensor-parallel mesh's KV-head shards."""
+    fn = (_attention.paged_attention_sharded if _device_type(q) == "cuda"
+          else _attention.paged_attention_sharded_ref)
+    return fn(q, k_pool, v_pool, block_tables, seq_lens, mesh, logit_softcap=logit_softcap)
+
+
 def checkpoint_gather(pool, block_ids, *, out=None):
     """Pack the pages ``block_ids`` of a (P, N, page, Hkv, D) pool leaf into
     a dense (P, K, page, Hkv, D) staging buffer."""
@@ -85,12 +108,22 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0, q_offset=0,
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Every kernel's launches, and the sharded wrappers' per-shard launches
+    and fallbacks as ``"<name> shard_launches"`` and ``"<name> fallbacks"``."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    for name, fn in KERNELS.items():
+        for c in SHARD_COUNTS:
+            if hasattr(fn, c):
+                counts[f"{name} {c}"] = getattr(fn, c)
+    return counts
 
 
 def reset_launch_counts() -> None:
     """Zeroes every kernel's launch count (and the decode kernel's count of
-    split-KV merges)."""
+    split-KV merges, and the sharded wrappers' other counts)."""
     for fn in KERNELS.values():
         fn.launches = 0
+        for c in SHARD_COUNTS:
+            if hasattr(fn, c):
+                setattr(fn, c, 0)
     _attention.paged_attention.merge_launches = 0

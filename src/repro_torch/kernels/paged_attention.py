@@ -6,7 +6,10 @@ replacing a Pallas TPU kernel of ``src/repro/kernels/paged_attention.py``:
 * ``paged_attention`` (``csrc/paged_attention.cu``): decode, one query token
   per sequence (the split serving path); bf16 on the tensor cores, with
   the keys split across blocks where few (sequence, KV head) pairs would
-  leave the card idle (``decode_splits``).
+  leave the card idle (``decode_splits``);
+* ``ragged_paged_attention_sharded`` and ``paged_attention_sharded``: the
+  two over a tensor-parallel mesh's KV-head shards (DESIGN.md §11), one
+  launch of the kernel above per shard on its local heads.
 
 The wrappers take CUDA tensors only and launch their kernel or raise.  Their
 plain versions, ``ragged_paged_attention_ref`` and ``paged_attention_ref``
@@ -21,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from ..distributed.sharding import HeadSharded, over_kv_shards
 from ..kvcache.cache_ops import (  # noqa: F401
     paged_attention_ref,
     ragged_paged_attention_ref,
@@ -233,3 +237,91 @@ def paged_attention(
 
 paged_attention.launches = 0
 paged_attention.merge_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Over a tensor-parallel mesh's KV-head shards (DESIGN.md §11)
+#
+# Replace ``ragged_paged_attention_sharded`` and ``paged_attention_sharded``
+# (src/repro/kernels/paged_attention.py), a ``shard_map`` of the Pallas
+# kernels over the mesh's ``model`` axis with no collective inside.  Here
+# each shard launches the hand-written kernel above on its own device, on
+# its local Hkv / tp KV heads and their query heads: the query-head axis is
+# grouped KV-head-major, so a contiguous run of H / tp query heads holds the
+# G queries of each local KV head.  Tables, positions and lengths
+# replicate; the outputs are gathered along heads onto q's device.  When
+# the head counts do not divide tp the pool is replicated and one
+# unsharded call runs on shard 0's copy, as the reference falls back.
+# ---------------------------------------------------------------------------
+
+
+def _count(wrapper, shards: int) -> None:
+    wrapper.launches += 1
+    wrapper.shard_launches += shards
+    wrapper.fallbacks += shards == 0
+
+
+def ragged_paged_attention_sharded(
+    q: torch.Tensor,  # (S, Qmax, H, D) on the mesh's lead device
+    k_pool: HeadSharded,  # (N, page, Hkv, D) over the mesh
+    v_pool: HeadSharded,
+    block_tables: torch.Tensor,  # (S, M) int32
+    q_positions: torch.Tensor,  # (S, Qmax) int32
+    kv_lens: torch.Tensor,  # (S,) int32
+    mesh,
+    *,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """``ragged_paged_attention`` over the mesh's KV-head shards: one launch
+    per shard on CUDA tensors (or one unsharded launch where the heads do not
+    divide).  Returns (S, Qmax, H, D) on q's device.  ``.launches`` counts
+    the calls, ``.shard_launches`` the per-shard launches among them and
+    ``.fallbacks`` the unsharded ones."""
+    if q.device.type != "cuda":
+        raise ValueError("ragged_paged_attention_sharded: q must be on a CUDA device")
+    out, n = over_kv_shards(ragged_paged_attention, q, k_pool, v_pool,
+                            (block_tables, q_positions, kv_lens), mesh, 2,
+                            logit_softcap=logit_softcap)
+    _count(ragged_paged_attention_sharded, n)
+    return out
+
+
+def ragged_paged_attention_sharded_ref(q, k_pool, v_pool, block_tables, q_positions,
+                                       kv_lens, mesh, *, logit_softcap=0.0):
+    """Plain version of ``ragged_paged_attention_sharded``: the plain
+    version per shard, gathered."""
+    return over_kv_shards(ragged_paged_attention_ref, q, k_pool, v_pool,
+                          (block_tables, q_positions, kv_lens), mesh, 2,
+                          logit_softcap=logit_softcap)[0]
+
+
+def paged_attention_sharded(
+    q: torch.Tensor,  # (B, H, D) on the mesh's lead device
+    k_pool: HeadSharded,  # (N, page, Hkv, D) over the mesh
+    v_pool: HeadSharded,
+    block_tables: torch.Tensor,  # (B, M) int32
+    seq_lens: torch.Tensor,  # (B,) int32
+    mesh,
+    *,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """``paged_attention`` over the mesh's KV-head shards, counted as
+    ``ragged_paged_attention_sharded`` is.  Each shard's bf16 call picks its
+    own key splits from its local KV heads (``decode_splits``)."""
+    if q.device.type != "cuda":
+        raise ValueError("paged_attention_sharded: q must be on a CUDA device")
+    out, n = over_kv_shards(paged_attention, q, k_pool, v_pool, (block_tables, seq_lens),
+                            mesh, 1, logit_softcap=logit_softcap)
+    _count(paged_attention_sharded, n)
+    return out
+
+
+def paged_attention_sharded_ref(q, k_pool, v_pool, block_tables, seq_lens, mesh, *,
+                                logit_softcap=0.0):
+    """Plain version of ``paged_attention_sharded``."""
+    return over_kv_shards(paged_attention_ref, q, k_pool, v_pool, (block_tables, seq_lens),
+                          mesh, 1, logit_softcap=logit_softcap)[0]
+
+
+for _fn in (ragged_paged_attention_sharded, paged_attention_sharded):
+    _fn.launches = _fn.shard_launches = _fn.fallbacks = 0

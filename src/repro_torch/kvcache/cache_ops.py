@@ -19,10 +19,29 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def _scatter_kept(
-    pool: torch.Tensor,  # (num_blocks, bs, Hkv, D), contiguous
+def _kept_slots(
+    num_blocks: int,
+    block_size: int,
     rows: torch.Tensor,  # (T,) block row per token, any value
     offsets: torch.Tensor,  # (T,) slot within the block
+    keep: torch.Tensor,  # (T,) bool: False drops the write
+):
+    """Where ``_scatter_kept`` writes, with no read-back of ``keep`` to the
+    host: ``(slots, first, any_kept)``, the flat pool slot of each token --
+    a dropped token takes the first kept token's slot, or slot 0 when none
+    is kept -- and the first kept index and whether it is kept, as
+    one-element tensors (``index_select``, never ``x[t]`` with a 0-d tensor
+    ``t``, which reads ``t`` back to the host).  K and V share them."""
+    dst = rows.long().clamp(0, num_blocks - 1) * block_size + offsets.long()
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)  # 0 if none is kept
+    any_kept = keep.index_select(0, first)  # (1,)
+    fill_dst = torch.where(any_kept, dst.index_select(0, first), 0)
+    return torch.where(keep, dst, fill_dst), first, any_kept
+
+
+def _scatter_kept(
+    pool: torch.Tensor,  # (num_blocks, bs, Hkv, D), contiguous
+    slots,  # _kept_slots(...) of this pool's shape
     keep: torch.Tensor,  # (T,) bool: False drops the write
     new: torch.Tensor,  # (T, Hkv, D)
 ) -> None:
@@ -31,19 +50,20 @@ def _scatter_kept(
 
     A dropped write is turned into a copy of the first kept write (same
     slot, same value), so the duplicate is harmless in any order; when
-    nothing is kept it rewrites slot 0 with its own value.  The first kept
-    index stays a one-element tensor (``index_select``, never ``x[t]`` with
-    a 0-d tensor ``t``, which reads ``t`` back to the host)."""
+    nothing is kept it rewrites slot 0 with its own value."""
+    dst, first, any_kept = slots
     n, bs = pool.shape[:2]
     flat = pool.view(n * bs, *pool.shape[2:])
-    dst = rows.long().clamp(0, n - 1) * bs + offsets.long()
-    first = torch.argmax(keep.to(torch.int32)).reshape(1)  # 0 if none is kept
-    any_kept = keep.index_select(0, first)  # (1,)
-    fill_dst = torch.where(any_kept, dst.index_select(0, first), 0)
     fill_val = torch.where(any_kept[:, None, None], new.index_select(0, first), flat[:1])
-    dst = torch.where(keep, dst, fill_dst)
     val = torch.where(keep[:, None, None], new, fill_val.to(new.dtype))
     flat.index_copy_(0, dst, val.to(pool.dtype))
+
+
+def _scatter_kv(k_pool, v_pool, rows, offsets, keep, k_new, v_new) -> None:
+    """``_scatter_kept`` of the new K and V into their pools, in place."""
+    slots = _kept_slots(k_pool.shape[0], k_pool.shape[1], rows, offsets, keep)
+    _scatter_kept(k_pool, slots, keep, k_new)
+    _scatter_kept(v_pool, slots, keep, v_new)
 
 
 def append_paged(
@@ -62,8 +82,7 @@ def append_paged(
     col = seq_lens.long() // bs
     rows = block_tables.gather(1, col.clamp(0, m - 1)[:, None])[:, 0]
     keep = (rows >= 0) & (rows < k_pool.shape[0]) & (col < m)
-    _scatter_kept(k_pool, rows, seq_lens % bs, keep, k_new)
-    _scatter_kept(v_pool, rows, seq_lens % bs, keep, v_new)
+    _scatter_kv(k_pool, v_pool, rows, seq_lens % bs, keep, k_new, v_new)
     return k_pool, v_pool
 
 
@@ -84,8 +103,8 @@ def write_paged_chunk(
     keep = (rows >= 0) & (rows < k_pool.shape[0]) & (col < m)
     offs = (positions % bs).reshape(-1)
     rows, keep = rows.reshape(-1), keep.reshape(-1)
-    _scatter_kept(k_pool, rows, offs, keep, k_new.reshape(-1, *k_new.shape[2:]))
-    _scatter_kept(v_pool, rows, offs, keep, v_new.reshape(-1, *v_new.shape[2:]))
+    _scatter_kv(k_pool, v_pool, rows, offs, keep, k_new.reshape(-1, *k_new.shape[2:]),
+                v_new.reshape(-1, *v_new.shape[2:]))
     return k_pool, v_pool
 
 
@@ -100,14 +119,10 @@ def write_ragged(
     """Scatter a flattened ragged token batch into the pool, in place.
 
     Rows below 0 or at/after the pool's block count drop the write, as in
-    the reference.  Finding the kept tokens reads the mask back to the host
-    once (one synchronisation on a GPU); the engine's rows are always
-    valid."""
-    n = k_pool.shape[0]
-    keep = torch.nonzero((dst_rows >= 0) & (dst_rows < n)).squeeze(1)
-    rows, offs = dst_rows[keep].long(), dst_offsets[keep].long()
-    k_pool[rows, offs] = k_new[keep]
-    v_pool[rows, offs] = v_new[keep]
+    the reference, through ``_scatter_kept``: nothing is read back to the
+    host."""
+    keep = (dst_rows >= 0) & (dst_rows < k_pool.shape[0])
+    _scatter_kv(k_pool, v_pool, dst_rows, dst_offsets, keep, k_new, v_new)
     return k_pool, v_pool
 
 

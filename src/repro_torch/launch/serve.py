@@ -6,7 +6,10 @@ the config is the ``.reduced()`` smoke variant; with it, the published width
 and depth.  ``--no-fused-batch`` serves through the split per-family
 dispatches instead of the fused ragged batch; ``--backend contiguous``
 serves from contiguous per-request caches instead of the paged pool (its
-prefill chunks run the flash attention kernel).
+prefill chunks run the flash attention kernel).  ``--tp N`` shards the
+paged pools by KV heads over a tensor-parallel serving mesh (DESIGN.md
+§11): the first N cards (it raises with fewer), or with ``--device cpu`` N
+shards on the CPU.
 
 * ``real``: a ``Frontend`` in front of the engine; online streams and one
   offline batch job are submitted from this thread between engine steps,
@@ -30,6 +33,8 @@ Examples:
       --backend contiguous
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
       --device cpu --dtype float32 --online 2 --offline 4 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
+      --device cpu --dtype float32 --tp 2 --online 2 --offline 4 --max-new 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode wallclock --full \
       --duration 20 --rate 2 --offline 16 --metrics-port 9400
   PYTHONPATH=src python -m repro_torch.launch.serve --mode wallclock \
@@ -72,8 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--calibrate", action="store_true",
                     help="calibrate the latency model on the device first")
     ap.add_argument("--seed", type=int, default=0)
-    # tensor-parallel mesh size: not ported, any value above 1 raises
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards of the paged pools: the first N "
+                         "cards, or N CPU shards with --device cpu")
     # wallclock: the online trace and the SLO
     ap.add_argument("--duration", type=float, default=120.0,
                     help="seconds of online arrivals (wallclock)")
@@ -103,12 +109,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_real_engine(args):
+def serving_mesh(args):
+    """``--tp``'s mesh (DESIGN.md §11): None at 1 (one device, no mesh);
+    else the first ``--tp`` cards, or ``--tp`` shards on the CPU."""
+    from .mesh import make_serving_mesh, resolve_device
+
+    if args.tp <= 1:
+        return None
+    if resolve_device(args.device).type == "cpu":
+        return make_serving_mesh(args.tp, devices=["cpu"] * args.tp)
+    return make_serving_mesh(args.tp)
+
+
+def build_real_engine(args, mesh=None):
     """``--mode real``'s config, weights and engine (calibrated with
-    ``--calibrate``): ``(cfg, engine)``."""
+    ``--calibrate``): ``(cfg, engine)``.  A ``mesh`` given here replaces
+    ``--tp``'s (it may name one card several times)."""
     from ..configs import get_config
     from ..models import transformer as tf
-    from ..serving.real_engine import RealEngine, RealEngineConfig, resolve_device
+    from ..serving.real_engine import RealEngine, RealEngineConfig
+    from .mesh import resolve_device
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -126,6 +146,7 @@ def build_real_engine(args):
             prefix_cache=not args.no_prefix_cache,
             fused_batch=not args.no_fused_batch,
             backend=args.backend,
+            mesh=mesh if mesh is not None else serving_mesh(args),
         ),
         device=device,
     )
@@ -147,13 +168,13 @@ def real_prompts(args, cfg):
     return online, offline
 
 
-def run_real(args, *, record_margins: bool = False) -> dict:
+def run_real(args, *, record_margins: bool = False, mesh=None) -> dict:
     """Serve the workload; returns the engine, the handles and the timing.
     ``record_margins`` keeps each sampled token's top-1 minus top-2 logit in
-    ``engine.margins``."""
+    ``engine.margins``; ``mesh`` is ``build_real_engine``'s."""
     from ..serving.api import Frontend
 
-    cfg, eng = build_real_engine(args)
+    cfg, eng = build_real_engine(args, mesh)
     if record_margins:
         eng.margins = {}
     fe = Frontend(eng)
@@ -228,7 +249,7 @@ def wallclock_model(args):
     a safepoint after every layer.  Returns ``(cfg, params)``."""
     from ..configs import get_config
     from ..models import transformer as tf
-    from ..serving.real_engine import resolve_device
+    from .mesh import resolve_device
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -257,6 +278,7 @@ def wallclock_engine(cfg, params, args, max_model_len: int = 128):
             num_device_blocks=args.num_device_blocks, max_prefill_batch=4,
             prefix_cache=not args.no_prefix_cache,
             fused_batch=not args.no_fused_batch, backend=args.backend,
+            mesh=serving_mesh(args),
         ),
         device=args.device,
     )
@@ -370,7 +392,8 @@ def main_wallclock(args) -> None:
     streams = res["streams"]
     width = "full" if args.full else "reduced"
     path = "fused" if eng.fused else "split" if eng.paged else "contiguous"
-    print(f"arch={cfg.name} ({width}, {args.dtype}, {path} path) wall-clock on {eng.device}")
+    print(f"arch={cfg.name} ({width}, {args.dtype}, {path} path) wall-clock on "
+          f"{eng.device}, tp={args.tp}")
     print(f"online streams={len(streams)} finished="
           f"{sum(1 for h in streams if h.finished)} shed={res['shed']} "
           f"policy={args.backpressure}; batch done={res['job'].done}")
@@ -393,11 +416,6 @@ def main_wallclock(args) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            "tensor-parallel serving is not ported yet (ROADMAP Queue 1: "
-            "tensor parallelism)"
-        )
     if args.mode == "wallclock":
         main_wallclock(args)
         return
@@ -405,7 +423,8 @@ def main(argv=None) -> None:
     eng, cfg = res["engine"], res["cfg"]
     width = "full" if args.full else "reduced"
     path = "fused" if eng.fused else "split" if eng.paged else "contiguous"
-    print(f"arch={cfg.name} ({width}, {args.dtype}, {path} path) on {eng.device}")
+    print(f"arch={cfg.name} ({width}, {args.dtype}, {path} path) on {eng.device}, "
+          f"tp={args.tp}")
     for i, h in enumerate(res["streams"]):
         print(f"stream {i}: {h.poll()}")
     print(f"batch job done={res['job'].done} progress={res['job'].progress:.0%}")

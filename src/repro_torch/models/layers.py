@@ -7,6 +7,15 @@ attention, and the split path's paged prefill and decode attention.
 Layouts are the reference's, so tests compare like with like:
 activations (B, T, d_model), projections ``wq (d, H, hd)``, ``wo (H, hd, d)``,
 contiguous caches (B, C, Hkv, D), paged pools (num_blocks, block_size, Hkv, D).
+
+Tensor-parallel serving (DESIGN.md §11): with a ``mesh`` (a
+``launch.mesh.ServingMesh``) the paged layers take pools laid out over its
+shards (``distributed.sharding.HeadSharded``).  q/k/v are projected once,
+with the full weights, on the lead device and split by heads into
+contiguous per-shard tensors; each shard scatters its heads of the new K/V
+into its own pool and attends over them; the attention output is gathered
+along heads before the output projection.  So every matmul reduces over the
+same operands in the same order as without a mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import over_kv_shards, split_heads
 from ..kernels import ops as kernel_ops
 from ..kvcache.cache_ops import (
     NEG_INF,
@@ -265,6 +275,31 @@ def cached_attention(
     return out_proj(p, attn), cache
 
 
+def _write_shards(write, pool, mesh, k_new, v_new, *addressing) -> None:
+    """``write`` (a ``cache_ops`` scatter) of the new K/V into each shard's
+    part of the layer's pools, in place: its heads of ``k_new``/``v_new``
+    (all of them where the pools replicate, once per device), and its own
+    copies of the addressing tensors."""
+    kp, vp = pool["k"], pool["v"]
+    ks, vs = split_heads(k_new, mesh), split_heads(v_new, mesh)
+    for s in kp.writers():
+        dev = kp.parts[s].device
+        write(kp.parts[s], vp.parts[s], ks[s], vs[s], *(t.to(dev) for t in addressing))
+
+
+def _prefill_attend(cfg, q, k_pool, v_pool, block_tables, positions):
+    """Causal attention of a prefill chunk over the gathered per-sequence
+    context, in plain PyTorch (the reference has no kernel here)."""
+    max_ctx = block_tables.shape[1] * k_pool.shape[1]
+    kk = gather_paged(k_pool, block_tables, max_ctx)  # (B, T, Hkv, D)
+    vv = gather_paged(v_pool, block_tables, max_ctx)
+    kv_pos = torch.arange(max_ctx, device=q.device).expand(q.shape[0], max_ctx)
+    # causal masking doubles as the validity mask: slots at kv_pos <= q_pos
+    # were all written by this sequence
+    return gqa_scores_softmax_values(q, kk, vv, causal_mask(positions, kv_pos),
+                                     cfg.logit_softcap)
+
+
 def paged_prefill_attention(
     cfg: ModelConfig,
     p: Params,
@@ -272,23 +307,24 @@ def paged_prefill_attention(
     pool: Dict[str, torch.Tensor],  # this layer's {"k", "v"}, updated in place
     block_tables: torch.Tensor,  # (B, M)
     positions: torch.Tensor,  # (B, L) absolute positions of the chunk
+    mesh=None,  # tensor-parallel serving mesh: pool leaves are HeadSharded
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked prefill against the shared paged pool: scatter the chunk's
     roped KV into the pool, then attend causally over the gathered
     per-sequence context.  The reference runs this in plain jnp (no
-    kernel), so plain PyTorch is its port."""
+    kernel), so plain PyTorch is its port; on a mesh it runs per shard."""
     q, k, v = project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    write_paged_chunk(pool["k"], pool["v"], k, v, block_tables, positions)
-    max_ctx = block_tables.shape[1] * pool["k"].shape[1]
-    kk = gather_paged(pool["k"], block_tables, max_ctx)  # (B, T, Hkv, D)
-    vv = gather_paged(pool["v"], block_tables, max_ctx)
-    kv_pos = torch.arange(max_ctx, device=x.device).expand(x.shape[0], max_ctx)
-    # causal masking doubles as the validity mask: slots at kv_pos <= q_pos
-    # were all written by this sequence
-    attn = gqa_scores_softmax_values(q, kk, vv, causal_mask(positions, kv_pos),
-                                     cfg.logit_softcap)
+    if mesh is None:
+        write_paged_chunk(pool["k"], pool["v"], k, v, block_tables, positions)
+        attn = _prefill_attend(cfg, q, pool["k"], pool["v"], block_tables, positions)
+    else:
+        _write_shards(write_paged_chunk, pool, mesh, k, v, block_tables, positions)
+        attn, _ = over_kv_shards(
+            lambda *a: _prefill_attend(cfg, *a), q, pool["k"], pool["v"],
+            (block_tables, positions), mesh, 2,
+        )
     return out_proj(p, attn), pool
 
 
@@ -299,18 +335,27 @@ def paged_decode_attention(
     pool: Dict[str, torch.Tensor],  # this layer's {"k", "v"}, updated in place
     block_tables: torch.Tensor,  # (B, M)
     positions: torch.Tensor,  # (B, 1) — the new token's absolute position
+    mesh=None,  # tensor-parallel serving mesh: pool leaves are HeadSharded
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode against the shared paged pool: append the token's
     KV, then the paged decode attention kernel (CUDA) or its plain version
-    (CPU)."""
+    (CPU), per shard on a mesh."""
     q, k, v = project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    append_paged(pool["k"], pool["v"], k[:, 0], v[:, 0], block_tables, positions[:, 0])
-    out = kernel_ops.paged_attention(
-        q[:, 0], pool["k"], pool["v"], block_tables, positions[:, 0] + 1,
-        logit_softcap=cfg.logit_softcap,
-    )
+    if mesh is None:
+        append_paged(pool["k"], pool["v"], k[:, 0], v[:, 0], block_tables, positions[:, 0])
+        out = kernel_ops.paged_attention(
+            q[:, 0], pool["k"], pool["v"], block_tables, positions[:, 0] + 1,
+            logit_softcap=cfg.logit_softcap,
+        )
+    else:
+        _write_shards(append_paged, pool, mesh, k[:, 0], v[:, 0], block_tables,
+                      positions[:, 0])
+        out = kernel_ops.paged_attention_sharded(
+            q[:, 0], pool["k"], pool["v"], block_tables, positions[:, 0] + 1, mesh,
+            logit_softcap=cfg.logit_softcap,
+        )
     return out_proj(p, out[:, None]), pool
 
 
@@ -342,21 +387,30 @@ def paged_ragged_attention(
     block_tables: torch.Tensor,  # (S, M) int32
     positions: torch.Tensor,  # (1, T) absolute position of each flat token
     meta: RaggedMeta,
+    mesh=None,  # tensor-parallel serving mesh: pool leaves are HeadSharded
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Fused mixed-batch attention against the shared paged pool.
 
     Projects and ropes the whole flat batch, scatters every new token's KV
-    into the pool in place (one ``write_ragged``), runs the ragged paged
-    attention kernel (CUDA) or its plain version (CPU) once, and gathers
-    the output back to the flat token axis.  Returns (out, pool)."""
+    into the pool in place (one ``write_ragged``, per shard on a mesh), runs
+    the ragged paged attention kernel (CUDA) or its plain version (CPU)
+    once (once per shard on a mesh), and gathers the output back to the
+    flat token axis.  Returns (out, pool)."""
     q, k, v = project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    write_ragged(pool["k"], pool["v"], k[0], v[0], meta.dst_row, meta.dst_off)
     q_pad = q[0][meta.qpad.long()]  # (S, Qmax, H, D)
-    out = kernel_ops.ragged_paged_attention(
-        q_pad, pool["k"], pool["v"], block_tables, meta.q_pos, meta.kv_lens,
-        logit_softcap=cfg.logit_softcap,
-    )
+    if mesh is None:
+        write_ragged(pool["k"], pool["v"], k[0], v[0], meta.dst_row, meta.dst_off)
+        out = kernel_ops.ragged_paged_attention(
+            q_pad, pool["k"], pool["v"], block_tables, meta.q_pos, meta.kv_lens,
+            logit_softcap=cfg.logit_softcap,
+        )
+    else:
+        _write_shards(write_ragged, pool, mesh, k[0], v[0], meta.dst_row, meta.dst_off)
+        out = kernel_ops.ragged_paged_attention_sharded(
+            q_pad, pool["k"], pool["v"], block_tables, meta.q_pos, meta.kv_lens, mesh,
+            logit_softcap=cfg.logit_softcap,
+        )
     flat = out[meta.unpad_seq.long(), meta.unpad_j.long()][None]  # (1, T, H, D)
     return out_proj(p, flat), pool

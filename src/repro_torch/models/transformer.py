@@ -14,6 +14,11 @@ caches are updated in place (the layer views ``pools[i][kv][period]`` and
 ``caches[i][leaf][period]`` are written), where the reference slices,
 updates and merges functional copies.
 
+The paged entry points take a tensor-parallel serving ``mesh`` (DESIGN.md
+§11): the pools are then laid out over its shards by KV heads
+(``init_paged_pools(mesh=...)``) and every paged layer runs its KV writes and
+attention per shard (``layers``).
+
 Only architectures whose every layer is plain causal full attention with a
 dense MLP run here; the other families (SSM, MoE, cross-attention, sliding
 windows, encoders, VLMs) are ROADMAP Queue 1's item on the contiguous
@@ -26,6 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..distributed import sharding
 from .config import FFN_DENSE, MIXER_ATTN, ModelConfig
 from .layers import (
     KVCache,
@@ -138,18 +144,45 @@ def init_paged_pools(
     block_size: int,
     dtype=torch.float32,
     device="cpu",
+    mesh=None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Shared physical KV pools, one {"k","v"} pair per pattern position,
-    each (num_periods, num_blocks, block_size, Hkv, D)."""
+    each (num_periods, num_blocks, block_size, Hkv, D).  With a ``mesh``
+    each leaf is a ``sharding.HeadSharded`` over its shards (``device`` is
+    then not read): Hkv / tp heads per shard when tp divides Hkv, else a
+    replica per device (the reference's ``pool_shardings``)."""
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: paged pools require plain causal KV")
     shape = (cfg.num_periods, num_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {
-        str(i): {"k": torch.zeros(shape, dtype=dtype, device=device),
-                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for i, _ in enumerate(cfg.layer_pattern())
-    }
+
+    def leaf():
+        if mesh is not None:
+            return sharding.zeros(shape, dtype, mesh)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {str(i): {"k": leaf(), "v": leaf()} for i, _ in enumerate(cfg.layer_pattern())}
+
+
+def constrain_paged_pools(pools: Dict[str, PyTree], mesh) -> Dict[str, PyTree]:
+    """Check that the pools are laid out over ``mesh`` as
+    ``init_paged_pools`` lays them out (the reference pins the layout with
+    sharding constraints at every paged entry point; the port updates the
+    pools in place, so a layout cannot drift, only be handed in wrong).
+    Raises ``ValueError`` on a mismatch; no-op without a mesh."""
+    if mesh is None:
+        return pools
+    for pos, layer in pools.items():
+        for kv, leaf in layer.items():
+            ok = (isinstance(leaf, sharding.HeadSharded)
+                  and leaf.sharded == sharding.shards_heads(leaf.heads, mesh)
+                  and tuple(p.device for p in leaf.parts) == mesh.devices
+                  and all(p.shape[-2] == hi - lo for p, (lo, hi) in
+                          zip(leaf.parts, sharding.head_ranges(leaf.heads, mesh))))
+            if not ok:
+                raise ValueError(f"pool {pos}/{kv} is not laid out over the mesh's "
+                                 f"{mesh.tp} shards")
+    return pools
 
 
 def cache_capacity(cfg: ModelConfig, max_seq: int) -> int:
@@ -247,6 +280,7 @@ def run_periods(
     *,
     valid: Optional[torch.Tensor] = None,  # (B, L) padding mask (contiguous)
     q_offsets: Optional[Sequence[int]] = None,  # host chunk offsets (contiguous)
+    mesh=None,  # tensor-parallel serving mesh (paged only)
 ) -> torch.Tensor:
     """Periods [lo, lo + num) of the stack; returns x.
 
@@ -259,7 +293,7 @@ def run_periods(
     paged = block_tables is not None
     if paged and ((mode == "ragged") != (meta is not None) or mode not in PAGED_MODES):
         raise ValueError(f"paged mode {mode!r} with meta={meta is not None}")
-    if not paged and (meta is not None or mode not in CONTIGUOUS_MODES
+    if not paged and (meta is not None or mode not in CONTIGUOUS_MODES or mesh is not None
                       or (caches is None and mode != "full")):
         raise ValueError(f"contiguous mode {mode!r} with caches={caches is not None}")
     pattern = cfg.layer_pattern()
@@ -270,11 +304,11 @@ def run_periods(
             h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
             if paged and mode == "ragged":
                 mix, _ = paged_ragged_attention(
-                    cfg, lp["mixer"], h, cache, block_tables, positions, meta
+                    cfg, lp["mixer"], h, cache, block_tables, positions, meta, mesh
                 )
             elif paged:
                 attn = paged_decode_attention if mode == "decode" else paged_prefill_attention
-                mix, _ = attn(cfg, lp["mixer"], h, cache, block_tables, positions)
+                mix, _ = attn(cfg, lp["mixer"], h, cache, block_tables, positions, mesh)
             elif mode == "full":
                 mix = dense_attention(cfg, lp["mixer"], h, positions)
                 if cache is not None:  # emit the caches: the roped K/V
@@ -299,13 +333,15 @@ def run_tokens_paged(
     positions: torch.Tensor,  # (T,) absolute position of each flat token
     meta: RaggedMeta,
     logit_index: torch.Tensor,  # (S,) flat index of each sequence's last token
+    mesh=None,  # tensor-parallel serving mesh (DESIGN.md §11)
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """Whole-stack fused mixed-batch forward. Returns ((S, V) logits, pools);
     the pools are the argument, updated in place."""
     _check_supported(cfg)
     x = embed(cfg, params, tokens[None])
-    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, pools,
-                    block_tables, positions[None], meta)
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
+                    constrain_paged_pools(pools, mesh), block_tables, positions[None],
+                    meta, mesh=mesh)
     return ragged_lm_head(cfg, params, x, logit_index), pools
 
 
@@ -319,12 +355,15 @@ def run_tokens_paged_at(
     block_tables: torch.Tensor,  # (S, M)
     positions: torch.Tensor,  # (1, T)
     meta: RaggedMeta,
+    mesh=None,  # tensor-parallel serving mesh (DESIGN.md §11)
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """One K-layer segment of the fused ragged batch.  Pool writes of an
     aborted iteration land at not-yet-committed positions and are rewritten
-    verbatim on re-execution (§12 abort soundness)."""
-    x = run_periods(cfg, params["layers"], lo, seg_periods, x, pools,
-                    block_tables, positions, meta)
+    verbatim on re-execution (§12 abort soundness; on a mesh every shard
+    has run the same segments at an abort, §11)."""
+    x = run_periods(cfg, params["layers"], lo, seg_periods, x,
+                    constrain_paged_pools(pools, mesh), block_tables, positions, meta,
+                    mesh=mesh)
     return x, pools
 
 
@@ -342,6 +381,7 @@ def prefill_chunk_paged(
     block_tables: torch.Tensor,  # (B, M) physical block ids
     offsets: torch.Tensor,  # (B,) tokens already prefilled per sequence
     last_index: Optional[torch.Tensor] = None,  # (B,) logits position
+    mesh=None,  # tensor-parallel serving mesh (DESIGN.md §11)
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """Chunked prefill on the paged layout.  Returns ((B, V) logits of each
     row's ``last_index`` token, or of its last token, and the pools, updated
@@ -352,8 +392,9 @@ def prefill_chunk_paged(
     b, l = tokens.shape
     positions = offsets[:, None] + torch.arange(l, dtype=offsets.dtype,
                                                 device=offsets.device)[None, :]
-    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, pools,
-                    block_tables, positions, mode="prefill")
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
+                    constrain_paged_pools(pools, mesh), block_tables, positions,
+                    mode="prefill", mesh=mesh)
     if last_index is None:
         xl = x[:, -1:, :]
     else:
@@ -368,13 +409,15 @@ def decode_step_paged(
     pools: Dict[str, PyTree],
     block_tables: torch.Tensor,  # (B, M)
     seq_lens: torch.Tensor,  # (B,) current lengths (the new token's position)
+    mesh=None,  # tensor-parallel serving mesh (DESIGN.md §11)
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """One decode iteration on the paged layout.  Returns ((B, V) logits,
     pools updated in place)."""
     _check_supported(cfg)
     x = embed(cfg, params, last_tokens[:, None])
-    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, pools,
-                    block_tables, seq_lens[:, None], mode="decode")
+    x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
+                    constrain_paged_pools(pools, mesh), block_tables, seq_lens[:, None],
+                    mode="decode", mesh=mesh)
     return lm_head(cfg, params, x)[:, 0, :], pools
 
 
@@ -387,12 +430,14 @@ def run_segment_paged_at(
     pools: Dict[str, PyTree],
     block_tables: torch.Tensor,
     positions: torch.Tensor,  # (B, 1)
+    mesh=None,  # tensor-parallel serving mesh (DESIGN.md §11)
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """One preemptible decode segment on the paged layout (paper §4.3
     safepoints).  Pool writes of an aborted iteration land at the
     not-yet-committed position and are rewritten verbatim on re-execution."""
-    x = run_periods(cfg, params["layers"], lo, seg_periods, x, pools,
-                    block_tables, positions, mode="decode")
+    x = run_periods(cfg, params["layers"], lo, seg_periods, x,
+                    constrain_paged_pools(pools, mesh), block_tables, positions,
+                    mode="decode", mesh=mesh)
     return x, pools
 
 
@@ -404,11 +449,12 @@ def run_segment_paged(
     pools: Dict[str, PyTree],
     block_tables: torch.Tensor,
     positions: torch.Tensor,
+    mesh=None,  # tensor-parallel serving mesh (DESIGN.md §11)
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """``run_segment_paged_at`` addressed by segment index."""
     lo, hi = segment_bounds(cfg, seg)
     return run_segment_paged_at(cfg, params, hi - lo, lo, x, pools,
-                                block_tables, positions)
+                                block_tables, positions, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

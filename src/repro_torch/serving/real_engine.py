@@ -3,13 +3,14 @@
 a CUDA card (or the CPU, when the caller asks for it).
 
 Counterpart of ``src/repro/serving/real_engine.py`` restricted to its
-serial single-device paths: the paged KV pool with the fused ragged batch
+serial paths: the paged KV pool with the fused ragged batch
 (``fused_batch=True``, the default) or the split per-family dispatches
-(``fused_batch=False``, the fused path's differential oracle), and the
+(``fused_batch=False``, the fused path's differential oracle), on one
+device or over a tensor-parallel serving mesh (``mesh``), and the
 contiguous per-request caches (``backend="contiguous"``); the serial engine
-(``pipeline=False``) and a single device (``mesh=None``).  Any other
-setting, and any architecture but a dense causal full-attention stack,
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+(``pipeline=False``).  Any other setting, and any architecture but a dense
+causal full-attention stack, raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 
 * Physical KV layout: shared pools ``(num_periods, num_device_blocks + 1,
   block_size, Hkv, D)`` per pattern position, updated in place; the last
@@ -35,6 +36,14 @@ raises ``NotImplementedError`` naming the ROADMAP item that brings it.
   reference) and slice the batch back.  Checkpoints copy cache slots to the
   host, a swap-out does the same, a discard drops the cache, and a resume
   builds a fresh cache and restores the stored blocks into it.
+* Tensor parallelism (DESIGN.md §11): ``RealEngineConfig.mesh``, a
+  ``launch.mesh.ServingMesh`` of tp devices, shards the paged pools by KV
+  heads (a replica per device where tp does not divide them); one
+  controller drives every shard.  Params are placed once per distinct
+  device; everything else runs on the lead device, and each paged layer
+  writes and attends per shard.  The scheduler, the block manager, the
+  checkpointer and the ``HostKVStore`` never see the mesh: checkpoints
+  assemble full-head blocks, and restores and copy-on-write run per shard.
 * ``calibrate()`` times the engine's own dispatches over the serve-time
   shape grid on the host clock (dispatch plus device synchronisation) and
   installs the fitted ``MeasuredProfiler`` as the scheduler's latency model.
@@ -54,6 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import bridge
 from ..core.budget import pow2_bucket
 from ..core.checkpoint import AdaptiveCheckpointPolicy, Checkpointer, HostKVStore
 from ..core.faults import InjectedFault, RequestFailed
@@ -70,31 +80,15 @@ from ..core.profiler import (
 from ..core.request import Request
 from ..core.scheduler import SchedulerConfig, UnifiedScheduler
 from ..core.slo import SLO
+from ..distributed import sharding
 from ..kernels import ops as kernel_ops
 from ..kvcache import cache_ops
 from ..kvcache.block_manager import BlockManager
+from ..launch.mesh import ServingMesh, resolve_device
 from ..models import transformer as tf
 from ..models.config import ModelConfig
 from ..models.layers import RaggedMeta
 from ..models.sampling import SamplingParams, sample
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist (there is
-    no silent fallback to the CPU).  A CUDA device without an index gets the
-    calling thread's current one, so the engine's tensors stay on that card
-    when another thread (the wall-clock runtime's engine thread, whose
-    current device is its own) drives it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def to_device(tree: Any, device: torch.device) -> Any:
@@ -121,10 +115,12 @@ class RealEngineConfig:
     # Fused mixed-batch execution (DESIGN.md §12); False runs the split
     # per-family dispatches, the fused path's differential oracle.
     fused_batch: bool = True
-    # The settings below exist for parity with the reference; only their
-    # defaults run in the port.
+    # The async pipeline exists for parity with the reference; only its
+    # default runs in the port.
     pipeline: bool = False
-    mesh: Optional[Any] = None
+    # Tensor-parallel serving mesh (launch.mesh.make_serving_mesh; paged
+    # backend only, DESIGN.md §11); its first device is the engine's device.
+    mesh: Optional[ServingMesh] = None
     # Shared-prefix KV caching with copy-on-write block sharing (§14).
     prefix_cache: bool = True
     # Deterministic fault injection (core.faults.FaultInjector, §16).
@@ -158,14 +154,27 @@ class RealEngine:
                 "the async pipeline is not ported yet (ROADMAP Queue 1: the "
                 "async pipeline)"
             )
-        if eng_cfg.mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet (ROADMAP Queue 1: "
-                "tensor parallelism)"
-            )
         self.device = resolve_device(device)
+        self.mesh = eng_cfg.mesh
+        if self.mesh is not None:
+            if not isinstance(self.mesh, ServingMesh):
+                raise ValueError("the serving mesh needs tp devices: build it with "
+                                 "launch.mesh.make_serving_mesh")
+            if not self.paged:
+                raise ValueError(
+                    "tensor-parallel serving requires the paged backend "
+                    f"({cfg.name} resolved to the contiguous fallback)"
+                )
+            if self.mesh.lead != self.device:
+                raise ValueError(f"the mesh's first device {self.mesh.lead} is not the "
+                                 f"engine's device {self.device}")
         self.cfg = cfg
-        self.params = to_device(params, self.device)
+        if self.mesh is None:
+            self.params = to_device(params, self.device)
+        else:
+            # params replicate: one copy per distinct device, shard 0's leads
+            self.shard_params = bridge.replicate(params, self.mesh.devices)
+            self.params = self.shard_params[0]
         self.dtype = self.params["embed"].dtype
         self.ec = eng_cfg
         self.fused = self.paged and eng_cfg.fused_batch
@@ -244,7 +253,7 @@ class RealEngine:
         if self.paged:
             self.pools = tf.init_paged_pools(
                 cfg, eng_cfg.num_device_blocks + 1, eng_cfg.block_size,
-                dtype=self.dtype, device=self.device,
+                dtype=self.dtype, device=self.device, mesh=self.mesh,
             )
         else:
             self.caches: Dict[int, Any] = {}  # request_id -> B=1 cache tree
@@ -277,7 +286,13 @@ class RealEngine:
             self.arrival_poll()
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
+        """Device-place one host-built input on the engine's (lead) device.
+        On a mesh, token ids, tables and lengths replicate: each shard takes
+        its own copy where it uses them (the same tensor on one device)."""
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _devices(self) -> Tuple[torch.device, ...]:
+        return (self.device,) if self.mesh is None else self.mesh.distinct()
 
     # ---------------------------------------------------------------- tokens
     def _tokens_of(self, req: Request) -> np.ndarray:
@@ -297,33 +312,51 @@ class RealEngine:
     def _leaves(self) -> List[Tuple[str, str]]:
         return [(pos, kv) for pos in self.pools for kv in ("k", "v")]
 
+    def _parts(self, leaf, readers: bool = False) -> List[Tuple[torch.Tensor, int, int]]:
+        """``(tensor, lo, hi)`` for each part of a pool leaf that a write goes
+        to, or with ``readers`` that a read of every head takes, and the KV
+        heads ``[lo, hi)`` it holds: the leaf itself without a mesh."""
+        if self.mesh is None:
+            return [(leaf, 0, leaf.shape[-2])]
+        ranges = sharding.head_ranges(leaf.heads, self.mesh)
+        return [(leaf.parts[s], *ranges[s])
+                for s in (leaf.readers() if readers else leaf.writers())]
+
     def _extract_blocks_paged(self, dev_blocks: List[int]) -> List[Any]:
         """Gather the chosen physical blocks of every pool leaf with the
-        ``checkpoint_gather`` kernel into one device staging buffer, copy it
-        to pinned host memory in one transfer, and return one stored dict
-        per block (``{pos: {"k", "v"}}`` of (P, page, Hkv, D) CPU views), in
-        ``dev_blocks`` order.  The id list pads to a power-of-two bucket
-        with the scratch block, like the reference's jitted gather."""
+        ``checkpoint_gather`` kernel into one device staging buffer (one per
+        shard on a mesh, each shard gathering its own heads), copy it to
+        pinned host memory in one transfer, and return one stored dict per
+        block (``{pos: {"k", "v"}}`` of (P, page, Hkv, D) CPU views, every KV
+        head at any tp), in ``dev_blocks`` order.  The id list pads to a
+        power-of-two bucket with the scratch block, like the reference's
+        jitted gather."""
         n = len(dev_blocks)
         pad = pow2_bucket(n)
         ids = self._put(np.asarray(
             list(dev_blocks) + [self._scratch_block] * (pad - n), np.int32
         ))
         leaves = self._leaves()
-        first = self.pools[leaves[0][0]][leaves[0][1]]
-        shape = (len(leaves), first.shape[0], pad, *first.shape[2:])
-        staging = torch.empty(shape, dtype=self.dtype, device=self.device)
-        for li, (pos, kv) in enumerate(leaves):
-            kernel_ops.checkpoint_gather(self.pools[pos][kv], ids,
-                                         out=staging[li])
+        parts = [self._parts(self.pools[pos][kv], readers=True) for pos, kv in leaves]
+        hosts = []
+        for s in range(len(parts[0])):  # each shard read
+            part = parts[0][s][0]
+            shape = (len(leaves), part.shape[0], pad, *part.shape[2:])
+            staging = torch.empty(shape, dtype=self.dtype, device=part.device)
+            ids_s = ids.to(part.device)
+            for li in range(len(leaves)):
+                kernel_ops.checkpoint_gather(parts[li][s][0], ids_s, out=staging[li])
+            if part.device.type == "cuda":
+                host = torch.empty(shape, dtype=self.dtype, pin_memory=True)
+                host.copy_(staging, non_blocking=True)
+                hosts.append(host)
+            else:
+                hosts.append(staging)
         self.ckpt_gathers += 1
-        if self.device.type == "cuda":
-            host = torch.empty(shape, dtype=self.dtype, pin_memory=True)
-            host.copy_(staging, non_blocking=True)
-            # the bytes are read as soon as this returns
-            torch.cuda.current_stream(self.device).synchronize()
-        else:
-            host = staging
+        for dev in self._devices():
+            if dev.type == "cuda":  # the bytes are read as soon as this returns
+                torch.cuda.current_stream(dev).synchronize()
+        host = hosts[0] if len(hosts) == 1 else torch.cat(hosts, dim=-2)
         stored = [{pos: {} for pos in self.pools} for _ in range(n)]
         for li, (pos, kv) in enumerate(leaves):
             for i in range(n):
@@ -332,14 +365,15 @@ class RealEngine:
 
     def _restore_blocks_paged(self, dev_blocks: List[int], stored: List[Any]):
         """Scatter host-stored blocks into (re-allocated) physical pool
-        slots, in place: one host-to-device copy and one scatter per leaf."""
+        slots, in place: one host-to-device copy and one scatter per leaf
+        (per shard on a mesh, each taking its own heads of the blocks)."""
         ids = torch.tensor(dev_blocks, dtype=torch.long, device=self.device)
         self.restored_blocks += len(dev_blocks)
         for pos, kv in self._leaves():
             blocks = torch.stack([s[pos][kv] for s in stored], dim=1)
-            self.pools[pos][kv].index_copy_(
-                1, ids, blocks.to(self.device, non_blocking=True)
-            )
+            for part, lo, hi in self._parts(self.pools[pos][kv]):
+                part.index_copy_(1, ids.to(part.device),
+                                 blocks[..., lo:hi, :].to(part.device, non_blocking=True))
 
     def _cow_blocks_paged(self, pairs: List[tuple]) -> None:
         """Realize the block manager's copy-on-write decisions on device
@@ -348,7 +382,8 @@ class RealEngine:
         dst = torch.tensor([d for _i, _s, d in pairs], device=self.device)
         self.cow_dispatches += 1
         for pos, kv in self._leaves():
-            cache_ops.copy_blocks(self.pools[pos][kv], src, dst, dim=1)
+            for part, _lo, _hi in self._parts(self.pools[pos][kv]):
+                cache_ops.copy_blocks(part, src.to(part.device), dst.to(part.device), dim=1)
 
     # ------------------------------------------------------ contiguous layout
     def _fresh_cache(self, req: Request) -> Any:
@@ -670,7 +705,7 @@ class RealEngine:
         def seg(lo, pps, h):
             h, _ = tf.run_tokens_paged_at(
                 self.cfg, self.params, pps, lo, h, self.pools, tables,
-                positions, meta,
+                positions, meta, mesh=self.mesh,
             )
             return h
 
@@ -791,7 +826,7 @@ class RealEngine:
             self.dispatches["prefill"] += 1
             logits, _ = tf.prefill_chunk_paged(
                 self.cfg, self.params, self._put(toks), self.pools,
-                self._put(tables), self._put(offs), self._put(last),
+                self._put(tables), self._put(offs), self._put(last), mesh=self.mesh,
             )
             done = [
                 i for i, c in enumerate(chunks)
@@ -824,7 +859,8 @@ class RealEngine:
         else:
             self.dispatches["decode"] += 1
             logits, _ = tf.decode_step_paged(
-                self.cfg, self.params, last_t, self.pools, tables_t, lens_t
+                self.cfg, self.params, last_t, self.pools, tables_t, lens_t,
+                mesh=self.mesh,
             )
         return logits[:bsz], False
 
@@ -838,7 +874,8 @@ class RealEngine:
 
         def seg(lo, pps, h):
             h, _ = tf.run_segment_paged_at(
-                self.cfg, self.params, pps, lo, h, self.pools, tables, positions
+                self.cfg, self.params, pps, lo, h, self.pools, tables, positions,
+                mesh=self.mesh,
             )
             return h
 
@@ -931,7 +968,8 @@ class RealEngine:
         the host's share of a step counts.  Probes address only the scratch
         row (paged) or throwaway caches allocated per call (contiguous, as
         in the reference: its decode times include that allocation), so
-        calibration never perturbs live KV."""
+        calibration never perturbs live KV.  On a mesh every probe is the
+        sharded dispatch, and its timer waits for every device of the mesh."""
         if grid is None:
             grid = self._default_grid()
         if grid.pipeline_depth != 1:
@@ -945,8 +983,9 @@ class RealEngine:
 
         def run(fn) -> None:
             fn()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            for d in self._devices():
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
         def timed(fn) -> float:
             for _ in range(grid.warmup):
@@ -970,7 +1009,7 @@ class RealEngine:
                     for lo, pps in tf.segment_spans(self.cfg):
                         x, _ = tf.run_tokens_paged_at(
                             self.cfg, self.params, pps, lo, x, self.pools,
-                            tables, positions, meta,
+                            tables, positions, meta, mesh=self.mesh,
                         )
                     return tf.ragged_lm_head(self.cfg, self.params, x, li)
 
@@ -1020,14 +1059,16 @@ class RealEngine:
                 offs = self._put(np.zeros((b,), np.int32))
                 last = self._put(np.full((b,), c - 1, np.int32))
                 return timed(lambda: tf.prefill_chunk_paged(
-                    self.cfg, self.params, toks, self.pools, tables, offs, last))
+                    self.cfg, self.params, toks, self.pools, tables, offs, last,
+                    mesh=self.mesh))
 
             def decode_timer(b: int, ctx: int) -> float:
                 last = self._put(np.zeros((b,), np.int32))
                 tables = self._put(np.full((b, width), scratch, np.int32))
                 lens = self._put(np.full((b,), min(ctx, max_ctx - 1), np.int32))
                 return timed(lambda: tf.decode_step_paged(
-                    self.cfg, self.params, last, self.pools, tables, lens))
+                    self.cfg, self.params, last, self.pools, tables, lens,
+                    mesh=self.mesh))
 
         def swap_timer(n: int):
             nbytes = n * block_bytes(self.cfg, self.ec.block_size)

@@ -163,11 +163,19 @@ def test_engine_refuses_what_is_not_ported():
     params = bridge.to_torch(_weights("llama-2-7b")[2])
     windowed = dataclasses.replace(cfg, sliding_window=8)  # a ring cache
     for c, kw, item in [(cfg, dict(pipeline=True), "Queue 1: the async pipeline"),
-                        (cfg, dict(mesh=object()), "Queue 1: tensor parallelism"),
                         (windowed, dict(backend="contiguous"),
                          "Queue 1: the contiguous fallback's other archs")]:
         with pytest.raises(NotImplementedError, match=item):
             engine_t.RealEngine(c, params, eng_cfg=engine_t.RealEngineConfig(**kw),
+                                device="cpu")
+    # tensor parallelism is ported for the paged backend only, as in the
+    # reference; a mesh must come from make_serving_mesh
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    for kw in (dict(backend="contiguous", mesh=make_serving_mesh(1, devices=["cpu"])),
+               dict(mesh=object())):
+        with pytest.raises(ValueError, match="paged backend|tp devices"):
+            engine_t.RealEngine(cfg, params, eng_cfg=engine_t.RealEngineConfig(**kw),
                                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

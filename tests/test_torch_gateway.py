@@ -425,8 +425,10 @@ def test_serve_wallclock_runs_to_its_end_on_the_cpu(capsys, one_intra_op_thread)
 
 
 def test_serve_refuses_tensor_parallelism_and_needs_a_card():
-    with pytest.raises(NotImplementedError, match="Queue 1: tensor parallelism"):
-        serve.main(["--mode", "wallclock", "--device", "cpu", "--tp", "2"])
+    # --tp shards the paged pools; the contiguous backend refuses it
+    with pytest.raises(ValueError, match="paged backend"):
+        serve.main(["--mode", "wallclock", "--device", "cpu", "--tp", "2",
+                    "--backend", "contiguous"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--mode", "wallclock"])  # the default device is cuda

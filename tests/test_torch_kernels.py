@@ -172,8 +172,12 @@ def test_ops_dispatch_by_device():
                enumerate([(1, 9, 4, 64), (1, 20, 2, 64), (1, 20, 2, 64)]))
     kw = dict(causal=True, sliding_window=5, q_offset=11, logit_softcap=30.0)
     assert torch.equal(ops.flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw))
-    assert ops.launch_counts() == {"ragged_paged_attention": 0, "paged_attention": 0,
-                                   "checkpoint_gather": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {
+        "ragged_paged_attention": 0, "paged_attention": 0, "checkpoint_gather": 0,
+        "flash_attention": 0, "ragged_paged_attention_sharded": 0,
+        "paged_attention_sharded": 0,
+        **{f"{k}_sharded {c}": 0 for k in ("ragged_paged_attention", "paged_attention")
+           for c in ops.SHARD_COUNTS}}
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
