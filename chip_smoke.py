@@ -98,6 +98,21 @@ any failure exits non-zero before the result lines:
    The kernel line gains ``ragged_paged_attention_sharded`` and
    ``paged_attention_sharded``, timed at (b)'s heaviest calls (one sharded
    call and one shard's launch).
+9. The async host/device pipeline (DESIGN.md §13) on engines built with
+   ``RealEngineConfig(pipeline=True)`` (``Pipelined``): (a) phase 3's
+   workload at bf16, launches counted (the kernel line's
+   ``launches_pipelined``), its decode batch profiled beside phase 3's with
+   ``host_gap_s`` p50 / p99; (b) phase 4's preempted workload at fp32, every
+   request's tokens against phase 4's up to the first near-tie, and a
+   safepoint abort of a staged batch; (c) at Llama-2-7B's widths and
+   OVERLAP_LAYERS layers, a device spin of OVERLAP_SPIN_MS enqueued in
+   steady decode: the pipelined ``step()`` must return in under half of it,
+   its steady steps under sync debug mode "error" (only the engine's event
+   waits let through), and the serial ``step()`` must take at least the
+   spin; (d) ``calibrate()`` at depth 4, its profile beside phase 6's fused
+   one, and phase 3's workload on it; (e) 7(c)'s replay through
+   ``CoServingRuntime`` over a pipelined engine (PIPELINED_ONLINE_AT): at
+   least one safepoint abort, lossless streams, tokens equal to 7(c)'s.
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -799,7 +814,8 @@ def profile_steps(torch, eng, steps: int = 6, figures=None):
     largest and every kernel of the port.  Returns the rows (device us,
     calls, name) per step, or None where the profiler cannot trace the
     card: that is reported, not fatal.  ``figures`` (a dict) receives the
-    step and busy times as text."""
+    step and busy times as text, and the p50 and p99 of the engine's
+    ``host_gap_s`` samples over the unprofiled steps (``"gap"``)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -812,11 +828,18 @@ def profile_steps(torch, eng, steps: int = 6, figures=None):
     for _ in range(4):  # the prefill steps
         eng.step()
     torch.cuda.synchronize()
+    g0 = len(eng.host_gap_s)
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     plain = time.perf_counter() - t0
+    gaps = sorted(eng.host_gap_s[g0:])  # only the fused path samples them
+    if figures is not None and gaps:
+        figures["gap"] = (f"host_gap_s over {len(gaps)} steps: p50 "
+                          f"{gaps[len(gaps) // 2] * 1e3:.3f} ms, p99 "
+                          f"{gaps[min(len(gaps) - 1, int(0.99 * len(gaps)))] * 1e3:.3f} ms")
+        log(f"  {figures['gap']}")
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1590,13 +1613,17 @@ def threaded_serve(torch, serve_mod, cfg, params, args, decode_phase3):
     torch.cuda.empty_cache()
 
 
-def replay_fp32_tokens(torch, serve_mod, serial):
+def replay_fp32_tokens(torch, serve_mod, serial, label="7(c)", online_at=REPLAY_ONLINE_AT,
+                       streams=False, against="wall-clock runtime vs engine alone"):
     """Phase 7(c): phase 4's workload at fp32 (the same engine settings and
     prompts) replayed through the runtime under a ManualClock with TTFT SLO
-    0: the offline jobs at t = 0, the online requests at REPLAY_ONLINE_AT.
+    0: the offline jobs at t = 0, the online requests at ``online_at``.
     At least one online arrival must abort a pure-offline batch at a
-    safepoint; every request's tokens must equal those of phase 4's serial
-    run up to the first near-tie."""
+    safepoint; every request's tokens must equal ``serial``'s (phase 4's
+    serial run) up to the first near-tie.  With ``streams`` every request
+    has a token channel, which must hold exactly its tokens, closed, once
+    the replay (which flushes a pipelined engine) returns.  Returns every
+    request's tokens and margins."""
     from repro_torch.core.request import Priority, Request
     from repro_torch.core.slo import SLO
     from repro_torch.serving.runtime import CoServingRuntime, ManualClock
@@ -1608,10 +1635,11 @@ def replay_fp32_tokens(torch, serve_mod, serial):
     eng.sched.slo = SLO(ttft=0.0, tpot=eng.sched.slo.tpot)
     online, offline = serve_mod.real_prompts(args, cfg)
     reqs = [Request(Priority.ONLINE, prompt_len=len(p), max_new_tokens=MAX_NEW, arrival_time=t,
-                    prompt=p) for t, p in zip(REPLAY_ONLINE_AT, online)]
+                    prompt=p) for t, p in zip(online_at, online)]
     reqs += [Request(Priority.OFFLINE, prompt_len=len(p), max_new_tokens=MAX_NEW, prompt=p)
              for p in offline]
     rt = CoServingRuntime(eng, clock=ManualClock(auto_tick=1e-3))
+    channels = [rt.register_stream(r) for r in reqs] if streams else []
     probe = AbortProbe(torch, eng)
     t0 = time.perf_counter()
     try:
@@ -1619,24 +1647,33 @@ def replay_fp32_tokens(torch, serve_mod, serial):
         torch.cuda.synchronize()
     finally:
         probe.close()
-    check_served("7(c)", rt, m, reqs)
-    log(f"  {len(online)} online at manual t={list(REPLAY_ONLINE_AT)} s + {len(offline)} offline, "
+    check_served(label, rt, m, reqs)
+    log(f"  {len(online)} online at manual t={list(online_at)} s + {len(offline)} offline, "
         f"pool {eng.ec.num_device_blocks} blocks: steps={eng.steps} safepoint_aborts="
         f"{rt.stats.safepoint_aborts} preemptions={m.num_preemptions} restored_blocks="
-        f"{eng.restored_blocks}; {time.perf_counter() - t0:.1f} s (host clock)")
-    probe.report("7(c)")
+        f"{eng.restored_blocks} pipeline_discards={eng.pipeline_discards}; "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    probe.report(label)
     if rt.stats.safepoint_aborts < 1:
-        raise AssertionError("7(c): no online arrival aborted a pure-offline batch")
+        raise AssertionError(f"{label}: no online arrival aborted a pure-offline batch")
+    for r, ch in zip(reqs, channels):
+        if not ch.closed or ch.get(timeout=0) != r.output_tokens or len(r.output_tokens) != \
+                r.num_generated:
+            raise AssertionError(f"{label}: request {r.request_id}'s stream is not its "
+                                 f"{len(r.output_tokens)} tokens, closed")
+    if channels:
+        log(f"  {len(channels)} streams closed, each holding exactly its request's tokens")
     got = [(list(r.output_tokens), eng.margins[r.request_id]) for r in reqs]
-    compare_runs("wall-clock runtime vs engine alone (fp32, every request)", got, serial)
+    compare_runs(f"{label}: {against} (fp32, every request)", got, serial)
     del rt, eng, reqs
     torch.cuda.empty_cache()
+    return got
 
 
 def wallclock_phase(torch, ops, serve_mod, serial, decode_phase3):
     """Phase 7: (a) bf16 replay, (b) threaded serving with the gateway,
     (c) fp32 tokens of a replay with a safepoint abort.  Returns (a)'s
-    kernel launches."""
+    kernel launches and (c)'s tokens and margins."""
     args = serve_mod.build_parser().parse_args(WALL_ARGV)
     log("[7a] replay of a loadgen trace through CoServingRuntime, bf16, host clock")
     cfg, params, counts = replay_bf16(torch, ops, serve_mod, args)
@@ -1645,8 +1682,7 @@ def wallclock_phase(torch, ops, serve_mod, serial, decode_phase3):
     del params
     torch.cuda.empty_cache()
     log("[7c] fp32 replay with a safepoint abort against phase 4's serial tokens")
-    replay_fp32_tokens(torch, serve_mod, serial)
-    return counts
+    return counts, replay_fp32_tokens(torch, serve_mod, serial)
 
 
 # ------------------------------------------------------------------- phase 8
@@ -1861,6 +1897,264 @@ def tp_phase(torch, ops, rpa, serve_mod, tf, spec, timer, serial, phase3, fused_
     return entries
 
 
+# ------------------------------------------------------------------- phase 9
+# (c): Llama-2-7B's widths at this depth, so one step's launches fit CUDA's
+# queue of pending launches behind the spin (a full-depth step launches
+# thousands of kernels, and the host would wait at enqueue)
+OVERLAP_LAYERS = 4
+OVERLAP_SPIN_MS = 200.0
+# (e): 7(c)'s replay with the first online arrival 5 ms later.  A pipelined
+# engine reads the manual clock at other points than the serial one (it
+# plans a step ahead), and 7(c)'s arrivals then land between batches; this
+# one lands at a safepoint of a pure-offline iteration at 32 layers and
+# aborts it.  As in 7(c), the plans depend on the depth and the lengths.
+PIPELINED_ONLINE_AT = (0.045, 0.380, 0.600, 0.900)
+
+
+class Pipelined:
+    """Inside ``with Pipelined(serve_mod):`` ``launch.serve.build_real_engine``
+    returns a pipelined engine: ``build_real_engine``'s config, weights and
+    settings with ``RealEngineConfig(pipeline=True)``, calibrated (at depth
+    4) when ``--calibrate`` is given.  The serve CLI has no pipeline flag, as
+    the reference's has none."""
+
+    def __init__(self, serve_mod):
+        self.serve_mod = serve_mod
+        self.orig = serve_mod.build_real_engine
+
+    def __enter__(self):
+        import argparse
+        import dataclasses
+
+        from repro_torch.serving.real_engine import RealEngine
+
+        def build(args, mesh=None):
+            plain = argparse.Namespace(**dict(vars(args), calibrate=False))
+            cfg, serial = self.orig(plain, mesh)
+            eng = RealEngine(cfg, serial.params, device=serial.device,
+                             eng_cfg=dataclasses.replace(serial.ec, pipeline=True))
+            del serial
+            if args.calibrate:
+                grid = eng._default_grid()
+                if grid.pipeline_depth != 4:
+                    raise AssertionError(f"pipelined calibration depth {grid.pipeline_depth}")
+                eng.calibrate(grid)
+            return cfg, eng
+
+        self.serve_mod.build_real_engine = build
+        return self
+
+    def __exit__(self, *exc):
+        self.serve_mod.build_real_engine = self.orig
+
+
+def staged_abort_tokens(torch, tf, cfg, params):
+    """Phase 9(b)'s staged-batch abort (the reference's
+    ``test_pipelined_mid_iteration_abort_discards_staged_batch``): 3 offline
+    jobs (64-token prompts, 16 new tokens) on a pipelined fp32 engine; after
+    3 steps the preemption flag is set at the first safepoint of the staged
+    batch, which must abort before its last segment and stage nothing.
+    Every request's tokens must equal those of the same run without the
+    abort up to the first near-tie."""
+    import numpy as np
+
+    from repro_torch.core.request import Priority, Request
+    from repro_torch.serving.real_engine import RealEngine, RealEngineConfig
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, 64).astype(np.int32) for _ in range(3)]
+
+    def go(abort_at):
+        eng = RealEngine(cfg, params, eng_cfg=RealEngineConfig(pipeline=True), device="cuda")
+        eng.margins = {}
+        reqs = [Request(Priority.OFFLINE, prompt_len=64, max_new_tokens=16, prompt=p)
+                for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        if abort_at is not None:
+            for _ in range(abort_at):
+                eng.step()
+            if eng._staged is None:
+                raise AssertionError("9(b): the pipeline staged no batch to abort")
+            eng.arrival_poll = eng.flag.set
+            before = eng.dispatches["fused_segment"]
+            eng.step()
+            eng.arrival_poll = None
+            ran = eng.dispatches["fused_segment"] - before
+            if (eng.safepoints.stats.preemptions != 1 or ran >= len(tf.segment_spans(cfg))
+                    or eng._staged is not None):
+                raise AssertionError(f"9(b): the staged batch did not abort at a safepoint "
+                                     f"({eng.safepoints.stats.preemptions} aborts, {ran} "
+                                     f"segments run, staged {eng._staged is not None})")
+            log(f"  the staged batch aborted after {ran} of {len(tf.segment_spans(cfg))} "
+                "segments and nothing was staged after it")
+        eng.run()
+        got = [(list(r.output_tokens), eng.margins[r.request_id]) for r in reqs]
+        del eng
+        torch.cuda.empty_cache()
+        return got
+
+    compare_runs("staged batch aborted vs not (pipelined, fp32)", go(3), go(None))
+
+
+def event_wait_is_flagged(torch) -> bool:
+    """Whether ``torch.cuda.Event.synchronize`` raises under sync debug
+    mode "error" (an event that has passed, so nothing waits)."""
+    ev = torch.cuda.Event()
+    ev.record()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev.synchronize()
+        return False
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def overlap_check(torch, tf, timer):
+    """Phase 9(c): Llama-2-7B's widths at OVERLAP_LAYERS layers, bf16, 8
+    offline jobs (64-token prompts) in steady decode.  On the pipelined
+    engine 4 steps, then a device spin of OVERLAP_SPIN_MS and one more step,
+    all under ``torch.cuda.set_sync_debug_mode("error")``: the engine's
+    event waits (on the previous iteration's fetch and on landing
+    checkpoints, ``RealEngine._wait``) run with the mode at "default" and
+    are counted; anything else that synchronises raises.  That step must
+    return in under half the spin on the host clock.  The serial engine's
+    step behind the same spin must take at least the spin."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.request import Priority, Request
+    from repro_torch.serving.real_engine import RealEngine, RealEngineConfig
+
+    cfg = dataclasses.replace(get_config("llama-2-7b"), num_layers=OVERLAP_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(cfg, gen, dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 64).astype(np.int32) for _ in range(8)]
+    spin = int(OVERLAP_SPIN_MS * timer.cycles_per_ms)
+    flagged = event_wait_is_flagged(torch)
+    log(f"  Event.synchronize under sync debug mode 'error' raises: {flagged}; the engine's "
+        "event waits run with the mode at 'default' either way")
+    took = {}
+    for pipelined in (True, False):
+        eng = RealEngine(cfg, params, eng_cfg=RealEngineConfig(pipeline=pipelined), device="cuda")
+        for p in prompts:
+            eng.submit(Request(Priority.OFFLINE, prompt_len=64, max_new_tokens=96, prompt=p))
+        for _ in range(12):  # the prefill, then decode
+            eng.step()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        gathers, waits = eng.ckpt_gathers, [0]
+        if pipelined:
+            staged = eng._staged
+            if staged is None or staged.plan.prefill_chunks or len(eng._fetches) != 1:
+                raise AssertionError("9(c): the pipelined engine is not in steady decode")
+
+            def wait(ev, real=eng._wait):
+                waits[0] += 1
+                torch.cuda.set_sync_debug_mode("default")
+                try:
+                    real(ev)
+                finally:
+                    torch.cuda.set_sync_debug_mode("error")
+
+            eng._wait = wait
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if pipelined:
+                for _ in range(4):
+                    eng.step()
+            a.record()
+            torch.cuda._sleep(spin)
+            b.record()
+            t0 = time.perf_counter()
+            eng.step()
+            took[pipelined] = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        spin_ms = a.elapsed_time(b)
+        name = "pipelined" if pipelined else "serial"
+        log(f"  {name}: step() behind a {spin_ms:.1f} ms device spin returned in "
+            f"{took[pipelined] * 1e3:.2f} ms (host clock); "
+            + (f"{waits[0]} event waits and {eng.ckpt_gathers - gathers} checkpoint gathers in "
+               "its 5 steps under sync debug mode 'error'" if pipelined else
+               "it reads the sampled tokens back"))
+        if pipelined and took[True] * 1e3 >= spin_ms / 2:
+            raise AssertionError("9(c): the pipelined step waited for the device")
+        if not pipelined and took[False] * 1e3 < spin_ms:
+            raise AssertionError("9(c): the serial step returned before the spin ended")
+        del eng
+    del params
+    torch.cuda.empty_cache()
+
+
+def pipeline_phase(torch, ops, serve_mod, tf, timer, serial, replayed, phase3, fused_profile,
+                   line):
+    """Phase 9: the async host/device pipeline (DESIGN.md §13).  Adds the
+    pipelined serve's launches to the kernel line's ragged attention and
+    checkpoint gather entries."""
+    log("[9a] phase 3's workload at bf16 on a pipelined engine")
+    with Pipelined(serve_mod):
+        res, counts, _args = run_serve(torch, ops, serve_mod, tf, SERVE_ARGV)
+    eng = res["engine"]
+    log(f"  pipeline_discards={eng.pipeline_discards} pipeline_programs="
+        f"{eng.pipeline_trace_count}; ragged_paged_attention {counts['ragged_paged_attention']} "
+        f"launches in {eng.steps} steps ({eng.safepoints.stats.preemptions} aborted), "
+        f"checkpoint_gather {counts['checkpoint_gather']}")
+    if eng._fetches or eng._ckpt_pending:
+        raise AssertionError("9(a): run() left fetches or checkpoint copies in flight")
+    figures = {"decode": "not measured (no profiler trace)"}
+    profile_steps(torch, eng, figures=figures)
+    log(f"  serial (phase 3): {phase3['decode']}; {phase3.get('gap')}")
+    log(f"  pipelined: {figures['decode']}; {figures.get('gap')}")
+    for entry in line:
+        if entry["name"] in ("ragged_paged_attention", "checkpoint_gather"):
+            entry["launches_pipelined"] = counts[entry["name"]]
+    del res, eng, _args
+    torch.cuda.empty_cache()
+
+    log("[9b] phase 4's preempted workload at fp32, pipelined, against phase 4's serial run")
+    argv32 = [a if a != "bfloat16" else "float32" for a in SERVE_ARGV]
+    with Pipelined(serve_mod):
+        res = serve(serve_mod, argv32)
+    eng = res["engine"]
+    log(f"  preemptions={res['preemptions']} steps={eng.steps} pipeline_discards="
+        f"{eng.pipeline_discards} restored_blocks={eng.restored_blocks}")
+    if res["preemptions"] == 0 or eng.pipeline_discards == 0:
+        raise AssertionError("9(b): the run did not preempt or discard a staged batch")
+    got = [(list(r.output_tokens), eng.margins[r.request_id])
+           for r in [h.request for h in res["streams"]] + list(res["job"].requests)]
+    compare_runs("pipelined vs serial fused, preempted (fp32, every request)", got, serial)
+    cfg, params = res["cfg"], eng.params
+    del res, eng
+    torch.cuda.empty_cache()
+    staged_abort_tokens(torch, tf, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    log(f"[9c] overlap: a {OVERLAP_SPIN_MS:.0f} ms device spin, then step(), at "
+        f"{OVERLAP_LAYERS} layers")
+    overlap_check(torch, tf, timer)
+
+    log("[9d] calibration of the pipelined engine (depth 4), then phase 3's workload on it")
+    with Pipelined(serve_mod):
+        text = calibrated_serve(torch, serve_mod, "fused pipelined", SERVE_ARGV)
+    log(f"  fused serial (phase 6): {fused_profile}")
+    log(f"  fused pipelined: {text}")
+
+    log("[9e] phase 7(c)'s fp32 replay through CoServingRuntime over a pipelined engine")
+    with Pipelined(serve_mod):
+        replay_fp32_tokens(torch, serve_mod, replayed, label="9(e)",
+                           online_at=PIPELINED_ONLINE_AT, streams=True,
+                           against="pipelined runtime vs 7(c)'s serial runtime")
+
+
 def launch_cost_us(torch, n: int = 20000) -> float:
     """Host time per launch of a small elementwise kernel (a chain of ``n``
     adds on a 256 x 256 tensor, then a synchronisation): what the host
@@ -2017,7 +2311,8 @@ def main() -> int:
     log("[7] wall-clock co-serving: CoServingRuntime on the fused engine")
     log(f"  host cost per launch {launch_cost_us(torch):.2f} us (after phases 3-3c's profiles)")
     t7 = time.perf_counter()
-    wall_counts = wallclock_phase(torch, ops, serve_mod, serial, fused_decode["decode"])
+    wall_counts, replayed = wallclock_phase(torch, ops, serve_mod, serial,
+                                            fused_decode["decode"])
     for entry in line:
         if entry["name"] in ("ragged_paged_attention", "checkpoint_gather"):
             entry["launches_wallclock"] = wall_counts[entry["name"]]
@@ -2029,6 +2324,12 @@ def main() -> int:
                      {"fused": fused_decode["decode"], "split": split_decode["decode"]},
                      fused_profile)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    log("[9] the async host/device pipeline (RealEngineConfig(pipeline=True))")
+    t9 = time.perf_counter()
+    pipeline_phase(torch, ops, serve_mod, tf, timer, serial, replayed, fused_decode,
+                   fused_profile, line)
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

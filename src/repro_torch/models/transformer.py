@@ -248,6 +248,21 @@ def ragged_lm_head(
     return lm_head(cfg, params, xl)[:, 0, :]
 
 
+def inject_sampled(
+    tokens: torch.Tensor,  # (T,) flat ragged token batch (padded)
+    idx: torch.Tensor,  # (R,) flat slots to overwrite
+    sampled: torch.Tensor,  # (B,) last iteration's sampled tokens (padded)
+    rows: torch.Tensor,  # (R,) row of each slot's value within `sampled`
+) -> torch.Tensor:
+    """Deferred-token injection of the pipelined engine (DESIGN.md §13):
+    ``tokens[idx] = sampled[rows]`` as one device scatter, so a batch built
+    before the previous iteration's tokens reached the host reads them on
+    the device.  ``idx`` / ``rows`` pad by repeating a real pair (a full
+    batch has no spare token slot to pad with); a repeated pair writes the
+    same value twice."""
+    return tokens.index_copy(0, idx.long(), sampled.index_select(0, rows.long()))
+
+
 # ---------------------------------------------------------------------------
 # Layer stack
 # ---------------------------------------------------------------------------

@@ -2,15 +2,14 @@
 (UnifiedScheduler / Checkpointer / safepoints) driving the port's model on
 a CUDA card (or the CPU, when the caller asks for it).
 
-Counterpart of ``src/repro/serving/real_engine.py`` restricted to its
-serial paths: the paged KV pool with the fused ragged batch
-(``fused_batch=True``, the default) or the split per-family dispatches
-(``fused_batch=False``, the fused path's differential oracle), on one
-device or over a tensor-parallel serving mesh (``mesh``), and the
-contiguous per-request caches (``backend="contiguous"``); the serial engine
-(``pipeline=False``).  Any other setting, and any architecture but a dense
-causal full-attention stack, raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+Counterpart of ``src/repro/serving/real_engine.py``: the paged KV pool with
+the fused ragged batch (``fused_batch=True``, the default) or the split
+per-family dispatches (``fused_batch=False``, the fused path's differential
+oracle), on one device or over a tensor-parallel serving mesh (``mesh``),
+and the contiguous per-request caches (``backend="contiguous"``); serial,
+or on the fused paged path pipelined (``pipeline=True``).  Any architecture
+but a dense causal full-attention stack raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 
 * Physical KV layout: shared pools ``(num_periods, num_device_blocks + 1,
   block_size, Hkv, D)`` per pattern position, updated in place; the last
@@ -52,13 +51,26 @@ ROADMAP item that brings it.
   buffer, copies it to pinned host memory in one transfer, and stores one
   block per entry in ``HostKVStore``; a resume scatters them back into
   whatever physical blocks it re-allocated.
+* Host-to-device inputs are copied from pinned memory with
+  ``non_blocking=True`` (``_put``), so building a batch never waits for the
+  device; the serial engine waits only where it reads sampled tokens back.
+* Async pipeline (DESIGN.md §13, ``pipeline=True``): while iteration N runs
+  on the device the host plans and builds N+1 (``_speculate``), sampling is
+  enqueued and its tokens come back through a pinned non-blocking copy and a
+  CUDA event (``_PendingFetch``), decode rows whose token is still in flight
+  get it by one device scatter (``transformer.inject_sampled``), and the
+  checkpoint gather lands a step later (``_resolve_ckpt_pending``).  The
+  reference splits its pools per segment because the XLA CPU client blocks
+  the host on donated buffers; here one pool is written in place on one
+  stream, whose order gives what that split buys.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,7 +100,7 @@ from ..launch.mesh import ServingMesh, resolve_device
 from ..models import transformer as tf
 from ..models.config import ModelConfig
 from ..models.layers import RaggedMeta
-from ..models.sampling import SamplingParams, sample
+from ..models.sampling import SamplingParams, sample, sample_rows
 
 
 def to_device(tree: Any, device: torch.device) -> Any:
@@ -115,8 +127,9 @@ class RealEngineConfig:
     # Fused mixed-batch execution (DESIGN.md §12); False runs the split
     # per-family dispatches, the fused path's differential oracle.
     fused_batch: bool = True
-    # The async pipeline exists for parity with the reference; only its
-    # default runs in the port.
+    # Async host/device pipeline (DESIGN.md §13), fused paged backend only:
+    # the host plans and builds iteration N+1 while N runs on the device.
+    # The serial engine is its differential oracle.
     pipeline: bool = False
     # Tensor-parallel serving mesh (launch.mesh.make_serving_mesh; paged
     # backend only, DESIGN.md §11); its first device is the engine's device.
@@ -125,6 +138,83 @@ class RealEngineConfig:
     prefix_cache: bool = True
     # Deterministic fault injection (core.faults.FaultInjector, §16).
     faults: Optional[Any] = None
+
+
+def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event behind the work queued so far on ``device``'s current
+    stream; None on the CPU, where every operation has finished when it
+    returns."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """Start copying a device tensor to the host: into pinned memory with
+    ``non_blocking=True`` on CUDA (the caller records an event after it and
+    waits on that before reading), the tensor itself on the CPU."""
+    if x.device.type != "cuda":
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return host.copy_(x, non_blocking=True)
+
+
+class _PendingFetch:
+    """One iteration's sampled tokens in flight from device to host
+    (DESIGN.md §13).
+
+    ``arr`` is the padded ``(B,)`` device buffer of ``sample_rows``, which
+    the next batch's ``inject_sampled`` reads on the device; ``reqs`` the
+    requests in sampler order; ``top2`` their top-2 logits when margins are
+    recorded.  The constructor starts the copies to pinned memory and records
+    an event behind them; ``resolve`` waits on it and appends each token to
+    ``Request.output_tokens``: the structural commit counted these tokens
+    without their values."""
+
+    __slots__ = ("arr", "reqs", "host", "top2", "event")
+
+    def __init__(self, arr: torch.Tensor, reqs: List[Request],
+                 top2: Optional[torch.Tensor] = None):
+        self.arr = arr
+        self.reqs = list(reqs)
+        self.host = _to_host(arr)
+        self.top2 = None if top2 is None else _to_host(top2)
+        self.event = _record_event(arr.device)
+
+    def resolve(self, wait: Callable, margins: Optional[Dict[int, List[float]]]) -> None:
+        wait(self.event)
+        for r, t in zip(self.reqs, self.host.tolist()):
+            r.output_tokens.append(int(t))
+        if self.top2 is not None and margins is not None:
+            for r, (a, b) in zip(self.reqs, self.top2.tolist()):
+                margins.setdefault(r.request_id, []).append(float(a - b))
+
+
+@dataclass
+class _PendingGather:
+    """A checkpoint gather in flight: ``n`` blocks per shard read in
+    ``hosts`` (pinned on CUDA), ready once ``events`` have passed."""
+
+    n: int
+    hosts: List[torch.Tensor]
+    events: List[torch.cuda.Event]
+
+
+@dataclass
+class _StagedBatch:
+    """A speculatively planned and built iteration awaiting dispatch (§13).
+    ``snap`` rolls the scheduler back if ``gen`` goes stale (an arrival
+    landed after staging) or the plan is discarded before dispatch; the
+    device inputs are dropped, and nothing a committed iteration reads
+    depends on them."""
+
+    plan: Any
+    snap: Any
+    gen: int
+    samplers: List[tuple]
+    inputs: tuple
 
 
 class RealEngine:
@@ -149,10 +239,11 @@ class RealEngine:
         # the contiguous fallback's other archs)
         tf._check_supported(cfg)
         self.paged = eng_cfg.backend != "contiguous"
-        if eng_cfg.pipeline:
-            raise NotImplementedError(
-                "the async pipeline is not ported yet (ROADMAP Queue 1: the "
-                "async pipeline)"
+        self.pipeline = bool(eng_cfg.pipeline)
+        if self.pipeline and not (self.paged and eng_cfg.fused_batch):
+            raise ValueError(
+                "pipeline=True requires the fused paged backend "
+                "(backend='paged'/'auto' with fused_batch=True)"
             )
         self.device = resolve_device(device)
         self.mesh = eng_cfg.mesh
@@ -241,12 +332,20 @@ class RealEngine:
         self.host_gap_s: List[float] = []
         self.host_gap_count = 0
         self.host_gap_seconds = 0.0
-        # staged batches invalidated before dispatch: the async pipeline is
-        # not ported, so this stays 0 (read by the wall-clock runtime)
-        self.pipeline_discards = 0
+        self.pipeline_discards = 0  # staged batches invalidated pre-dispatch
         self.measured_iter_seconds = 0.0
         self.predicted_iter_seconds = 0.0
         self.measured_iters = 0
+
+        # ---- async host/device pipeline state (DESIGN.md §13) ----------
+        self._staged: Optional[_StagedBatch] = None
+        self._plan_gen = 0  # bumped per arrival; invalidates staged plans
+        self._fetches: Deque[_PendingFetch] = deque()
+        self._ckpt_pending: List[Tuple[list, _PendingGather]] = []
+        self._step_snap_staged = False
+        # distinct argument shapes of the pipeline's two programs, sample_rows
+        # and inject_sampled: the reference's retraces of them
+        self._pipeline_shapes: set = set()
 
         self._scratch_block = eng_cfg.num_device_blocks
         self._table_width = self.blocks.blocks_for_tokens(eng_cfg.max_model_len)
@@ -263,6 +362,12 @@ class RealEngine:
         """Distinct (T, S, Qmax) buckets run, the reference's retrace count."""
         return len(self.fused_buckets)
 
+    @property
+    def pipeline_trace_count(self) -> int:
+        """Distinct argument shapes of ``sample_rows`` and
+        ``inject_sampled``, the reference's retrace count of them."""
+        return len(self._pipeline_shapes)
+
     # ------------------------------------------------------------------ api
     def set_clock(self, clock: Callable[[], float]) -> None:
         self._clock = clock
@@ -273,6 +378,7 @@ class RealEngine:
         if req.prompt is None:
             raise ValueError("real engine requires prompt token ids")
         self.sched.submit(req)
+        self._plan_gen += 1  # new work invalidates a speculatively staged plan
 
     def on_online_arrival(self, req: Request) -> None:
         """Streaming-API entry: may trip the preemption flag (Algorithm 2)."""
@@ -280,6 +386,7 @@ class RealEngine:
             raise ValueError("real engine requires prompt token ids")
         if self.sched.on_online_arrival(req, self._clock()):
             self.flag.set()
+        self._plan_gen += 1  # new work invalidates a speculatively staged plan
 
     def _on_safepoint(self, seg_idx: int) -> None:
         if self.arrival_poll is not None:
@@ -289,7 +396,25 @@ class RealEngine:
         """Device-place one host-built input on the engine's (lead) device.
         On a mesh, token ids, tables and lengths replicate: each shard takes
         its own copy where it uses them (the same tensor on one device)."""
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return self._to_device(torch.from_numpy(np.ascontiguousarray(x)), self.device)
+
+    @staticmethod
+    def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """Copy a host tensor to ``device`` without waiting for the device:
+        from pinned memory with ``non_blocking=True`` (a copy from pageable
+        memory synchronises the stream).  The pinned block may be dropped
+        at once: PyTorch's caching host allocator records an event for the
+        copy on it and hands the block out again only after that event."""
+        if device.type != "cuda":
+            return t.to(device)
+        return t.contiguous().pin_memory().to(device, non_blocking=True)
+
+    @staticmethod
+    def _wait(event: Optional[torch.cuda.Event]) -> None:
+        """The pipeline's only host waits: on the event behind a sampled-token
+        fetch or a checkpoint copy (None on the CPU: nothing to wait for)."""
+        if event is not None:
+            event.synchronize()
 
     def _devices(self) -> Tuple[torch.device, ...]:
         return (self.device,) if self.mesh is None else self.mesh.distinct()
@@ -322,15 +447,14 @@ class RealEngine:
         return [(leaf.parts[s], *ranges[s])
                 for s in (leaf.readers() if readers else leaf.writers())]
 
-    def _extract_blocks_paged(self, dev_blocks: List[int]) -> List[Any]:
-        """Gather the chosen physical blocks of every pool leaf with the
-        ``checkpoint_gather`` kernel into one device staging buffer (one per
-        shard on a mesh, each shard gathering its own heads), copy it to
-        pinned host memory in one transfer, and return one stored dict per
-        block (``{pos: {"k", "v"}}`` of (P, page, Hkv, D) CPU views, every KV
-        head at any tp), in ``dev_blocks`` order.  The id list pads to a
-        power-of-two bucket with the scratch block, like the reference's
-        jitted gather."""
+    def _gather_blocks(self, dev_blocks: List[int]) -> _PendingGather:
+        """Enqueue the checkpoint of the chosen physical blocks: gather them
+        from every pool leaf with the ``checkpoint_gather`` kernel into one
+        device staging buffer (one per shard on a mesh, each shard gathering
+        its own heads) and start its copy to pinned host memory; the bytes
+        are readable once ``_land_blocks`` has waited on the copies' events.
+        The id list pads to a power-of-two bucket with the scratch block,
+        like the reference's jitted gather."""
         n = len(dev_blocks)
         pad = pow2_bucket(n)
         ids = self._put(np.asarray(
@@ -343,47 +467,54 @@ class RealEngine:
             part = parts[0][s][0]
             shape = (len(leaves), part.shape[0], pad, *part.shape[2:])
             staging = torch.empty(shape, dtype=self.dtype, device=part.device)
-            ids_s = ids.to(part.device)
+            ids_s = ids.to(part.device, non_blocking=True)
             for li in range(len(leaves)):
                 kernel_ops.checkpoint_gather(parts[li][s][0], ids_s, out=staging[li])
-            if part.device.type == "cuda":
-                host = torch.empty(shape, dtype=self.dtype, pin_memory=True)
-                host.copy_(staging, non_blocking=True)
-                hosts.append(host)
-            else:
-                hosts.append(staging)
+            hosts.append(_to_host(staging))
         self.ckpt_gathers += 1
-        for dev in self._devices():
-            if dev.type == "cuda":  # the bytes are read as soon as this returns
-                torch.cuda.current_stream(dev).synchronize()
+        events = [ev for ev in map(_record_event, self._devices()) if ev is not None]
+        return _PendingGather(n, hosts, events)
+
+    def _land_blocks(self, pending: _PendingGather) -> List[Any]:
+        """Wait for a gather's copies and return one stored dict per block
+        (``{pos: {"k", "v"}}`` of (P, page, Hkv, D) CPU views, every KV head
+        at any tp), in the gathered order."""
+        for ev in pending.events:
+            self._wait(ev)
+        hosts = pending.hosts
         host = hosts[0] if len(hosts) == 1 else torch.cat(hosts, dim=-2)
-        stored = [{pos: {} for pos in self.pools} for _ in range(n)]
-        for li, (pos, kv) in enumerate(leaves):
-            for i in range(n):
+        stored = [{pos: {} for pos in self.pools} for _ in range(pending.n)]
+        for li, (pos, kv) in enumerate(self._leaves()):
+            for i in range(pending.n):
                 stored[i][pos][kv] = host[li][:, i]
         return stored
+
+    def _extract_blocks_paged(self, dev_blocks: List[int]) -> List[Any]:
+        """The chosen physical blocks on the host now: a gather, landed."""
+        return self._land_blocks(self._gather_blocks(dev_blocks))
 
     def _restore_blocks_paged(self, dev_blocks: List[int], stored: List[Any]):
         """Scatter host-stored blocks into (re-allocated) physical pool
         slots, in place: one host-to-device copy and one scatter per leaf
         (per shard on a mesh, each taking its own heads of the blocks)."""
-        ids = torch.tensor(dev_blocks, dtype=torch.long, device=self.device)
+        ids = self._put(np.asarray(dev_blocks, np.int64))
         self.restored_blocks += len(dev_blocks)
         for pos, kv in self._leaves():
             blocks = torch.stack([s[pos][kv] for s in stored], dim=1)
             for part, lo, hi in self._parts(self.pools[pos][kv]):
-                part.index_copy_(1, ids.to(part.device),
-                                 blocks[..., lo:hi, :].to(part.device, non_blocking=True))
+                part.index_copy_(1, ids.to(part.device, non_blocking=True),
+                                 self._to_device(blocks[..., lo:hi, :], part.device))
 
     def _cow_blocks_paged(self, pairs: List[tuple]) -> None:
         """Realize the block manager's copy-on-write decisions on device
         (DESIGN.md §14) before this iteration's KV writes."""
-        src = torch.tensor([s for _i, s, _d in pairs], device=self.device)
-        dst = torch.tensor([d for _i, _s, d in pairs], device=self.device)
+        src = self._put(np.asarray([s for _i, s, _d in pairs], np.int64))
+        dst = self._put(np.asarray([d for _i, _s, d in pairs], np.int64))
         self.cow_dispatches += 1
         for pos, kv in self._leaves():
             for part, _lo, _hi in self._parts(self.pools[pos][kv]):
-                cache_ops.copy_blocks(part, src.to(part.device), dst.to(part.device), dim=1)
+                cache_ops.copy_blocks(part, src.to(part.device, non_blocking=True),
+                                      dst.to(part.device, non_blocking=True), dim=1)
 
     # ------------------------------------------------------ contiguous layout
     def _fresh_cache(self, req: Request) -> Any:
@@ -409,11 +540,18 @@ class RealEngine:
 
     # ---------------------------------------------------------------- events
     def _process_events(self) -> None:
+        if self._ckpt_pending and any(
+            kind == "resume" for kind, _r, _p in self.sched.events
+        ):
+            # a resume reads the host store: in-flight checkpoint copies land
+            # first (the scheduler already counted their blocks recoverable)
+            self._resolve_ckpt_pending()
         for kind, req, payload in self.sched.events:
             rid = req.request_id
             if kind in ("preempt_discard", "preempt_swap"):
                 if kind == "preempt_swap" and payload:
-                    # blocking swap-out of the un-checkpointed blocks
+                    # blocking swap-out of the un-checkpointed blocks (rare:
+                    # it stays synchronous on the pipelined engine too)
                     if self.paged:
                         stored = self._extract_blocks_paged(
                             [dev for _idx, dev, _host in payload]
@@ -490,20 +628,33 @@ class RealEngine:
         )
 
     def flush_pipeline(self) -> None:
-        """Drain the engine's asynchronous artifacts before the wall-clock
-        runtime reads metrics and tokens.  The serial engine has none: each
-        step reads its sampled tokens back and synchronises its checkpoint
-        copies, so this is a no-op (the async pipeline is ROADMAP Queue 1's
-        item)."""
+        """Drain the pipelined engine's asynchronous artifacts: pending
+        sampled-token fetches (backfilling ``output_tokens``) and in-flight
+        checkpoint copies.  Idempotent, and a no-op on a serial engine.  It
+        runs when a step finds no work and at the end of ``run()``; the
+        wall-clock runtime calls it before reading metrics and tokens
+        (DESIGN.md §13)."""
+        self._resolve_fetches()
+        self._resolve_ckpt_pending()
 
     def recover_from_fault(self) -> None:
         """Roll back to the pre-iteration cut after an exception escaped
-        ``step()``, and drop manager host-table entries whose bytes a
-        processed COW event already popped."""
+        ``step()``: discard staged speculation (counted in
+        ``pipeline_discards``), drain the pipeline, and drop manager
+        host-table entries whose bytes a processed COW event already
+        popped."""
+        if self._staged is not None:  # faults fire after _staged was popped
+            self.sched.restore(self._staged.snap)
+            self._staged = None
+            self.pipeline_discards += 1
         snap, self._step_snap = self._step_snap, None
+        was_staged, self._step_snap_staged = self._step_snap_staged, False
         if snap is not None:
             self.sched.restore(snap)
+            if was_staged:
+                self.pipeline_discards += 1
         self.flag.clear()
+        self.flush_pipeline()
         for sid in self.blocks.seq_ids():
             sb = self.blocks.seq(sid)
             for i, hb in enumerate(sb.host_blocks):
@@ -523,10 +674,13 @@ class RealEngine:
         self.host.drop_seq(req.request_id)
         if not self.paged:
             self.caches.pop(req.request_id, None)
+        self._plan_gen += 1  # staged speculation may reference the request
 
     # ------------------------------------------------------------------ step
     def step(self) -> bool:
         """One engine iteration. Returns False when no work remains."""
+        if self.pipeline:
+            return self._step_pipelined()
         now = self._clock()
         sched = self.sched
         if self.faults is not None:
@@ -600,9 +754,22 @@ class RealEngine:
                 if cache is not None:
                     self.host.put(seq_id, idx, self._extract_block(cache, idx))
             return
-        stored = self._extract_blocks_paged([c[2] for c in chosen])
-        for (seq_id, idx, _dev, _host), blk in zip(chosen, stored):
-            self.host.put(seq_id, idx, blk)
+        # the gather follows this iteration's KV writes in stream order; the
+        # pipelined engine lands it next step, off the critical path (§13)
+        self._ckpt_pending.append((chosen, self._gather_blocks([c[2] for c in chosen])))
+        if not self.pipeline:
+            self._resolve_ckpt_pending()
+
+    def _resolve_ckpt_pending(self) -> None:
+        """Land in-flight checkpoint copies in the host store, skipping
+        sequences freed since the gather was enqueued (their host entries
+        are gone)."""
+        for chosen, pending in self._ckpt_pending:
+            stored = self._land_blocks(pending)
+            for (seq_id, idx, _dev, _host), blk in zip(chosen, stored):
+                if self.blocks.has_seq(seq_id):
+                    self.host.put(seq_id, idx, blk)
+        self._ckpt_pending.clear()
 
     # ------------------------------------------------- fused ragged execution
     def _build_ragged(self, items: List[tuple]) -> Dict[str, np.ndarray]:
@@ -700,6 +867,7 @@ class RealEngine:
             self.host_gap_s.append(gap)
             self.host_gap_count += 1
             self.host_gap_seconds += gap
+        self.fused_buckets.add((toks.shape[0], *meta.qpad.shape))
         x = tf.embed(self.cfg, self.params, toks[None])
 
         def seg(lo, pps, h):
@@ -718,9 +886,19 @@ class RealEngine:
     def _build_fused(self, plan) -> Tuple[List[tuple], tuple]:
         """Lower an ``IterationPlan`` to device-ready fused inputs.  Returns
         ``(samplers, inputs)``; ``samplers`` lists the ``(sequence row,
-        request)`` pairs whose logits are sampled after the dispatch."""
+        request)`` pairs whose logits are sampled after the dispatch.
+
+        Pipelined engine (§13): a decode row whose last token is still in
+        flight (in the newest pending fetch) gets a placeholder 0, patched by
+        one ``inject_sampled`` scatter from that fetch's device buffer; every
+        other decode row's token must already be on the host."""
+        pend: Dict[int, int] = {}
+        if self._fetches:
+            pend = {r.request_id: i for i, r in enumerate(self._fetches[-1].reqs)}
         items: List[tuple] = []
         samplers: List[tuple] = []
+        inj: List[tuple] = []  # (flat token slot, row in the pending samples)
+        start = 0
         for c in plan.prefill_chunks:
             toks = self._tokens_of(c.request)[c.offset : c.offset + c.length]
             items.append(
@@ -732,15 +910,37 @@ class RealEngine:
                 and c.request.num_generated == 0
             ):
                 samplers.append((len(items) - 1, c.request))
+            start += c.length
         for r in plan.decode_reqs:
+            row = pend.get(r.request_id)
+            if row is None:
+                toks = self._tokens_of(r)
+                if len(toks) != r.total_len:
+                    raise RuntimeError(
+                        f"request {r.request_id}: decode input token not on the host "
+                        f"({len(toks)} of {r.total_len} tokens)")
+                tok = toks[-1:]
+            else:
+                tok = np.zeros((1,), np.int32)  # injected on the device below
+                inj.append((start, row))
             items.append(
-                (1, r.total_len - 1, self._tokens_of(r)[-1:],
-                 self._block_table(r.request_id))
+                (1, r.total_len - 1, tok, self._block_table(r.request_id))
             )
             samplers.append((len(items) - 1, r))
-        a = self._build_ragged(items)
-        self.fused_buckets.add((len(a["tokens"]), *a["qpad"].shape))
-        return samplers, self._fused_inputs(a)
+            start += 1
+        inputs = self._fused_inputs(self._build_ragged(items))
+        if inj:
+            toks_d, tables, positions, meta, li = inputs
+            inj = inj + [inj[-1]] * (pow2_bucket(len(inj)) - len(inj))
+            sampled = self._fetches[-1].arr
+            self._pipeline_shapes.add(
+                ("inject_sampled", toks_d.shape[0], len(inj), sampled.shape[0]))
+            toks_d = tf.inject_sampled(
+                toks_d, self._put(np.asarray([i for i, _ in inj], np.int64)),
+                sampled, self._put(np.asarray([r for _, r in inj], np.int64)),
+            )
+            inputs = (toks_d, tables, positions, meta, li)
+        return samplers, inputs
 
     def _run_fused(self, plan, preemptible: bool, tokens: Dict[int, int]) -> bool:
         """Execute the whole ``IterationPlan`` as one fused ragged batch.
@@ -751,12 +951,11 @@ class RealEngine:
         if aborted:
             return True
         if samplers:
-            rows = torch.tensor([i for i, _ in samplers], device=self.device)
+            rows = self._put(np.asarray([i for i, _ in samplers], np.int64))
             self._sample(logits[rows], [r for _, r in samplers], tokens)
             self._last_event = None  # the readback above drained the device
-        elif self.device.type == "cuda":
-            self._last_event = torch.cuda.Event()
-            self._last_event.record(torch.cuda.current_stream(self.device))
+        else:
+            self._last_event = _record_event(self.device)
         self._t_last_enqueue = time.perf_counter()
         return False
 
@@ -771,6 +970,140 @@ class RealEngine:
                 self.margins.setdefault(r.request_id, []).append(float(a - b))
         for r, t in zip(reqs, toks):
             tokens[r.request_id] = int(t)
+
+    # ------------------------------------- async host/device pipeline (§13)
+    def _step_pipelined(self) -> bool:
+        """One iteration of the pipelined engine (DESIGN.md §13).
+
+        Dispatches the batch staged by the previous step's speculation, or
+        plans and builds serially when there is none or it went stale;
+        enqueues sampling with an asynchronous fetch; commits structurally
+        (token counts now, values backfilled by the fetch); enqueues the
+        checkpoint gather; then plans and builds the next iteration while
+        this one runs on the device.  Safepoints are host-side cuts between
+        segment enqueues, so once every segment is enqueued the iteration
+        can no longer abort: committing then observes what the serial engine
+        commits after blocking.  An abort stages nothing, so the next turn
+        replans against the post-abort state."""
+        now = self._clock()
+        sched = self.sched
+        staged, self._staged = self._staged, None
+        if staged is not None and staged.gen != self._plan_gen:
+            # an arrival landed after staging: Algorithm 2 must see it
+            sched.restore(staged.snap)
+            self.pipeline_discards += 1
+            staged = None
+        if staged is None:
+            # serial turn: the token values are needed on the host to build
+            self._resolve_fetches()
+            if self._t_last_enqueue is not None:
+                # the fetches drained the device: this turn's gap sample
+                # measures plan and build, the serial engine's gap
+                self._t_last_enqueue = time.perf_counter()
+                self._last_event = None
+            if self.faults is not None:
+                self._step_snap = sched.snapshot()
+                self._step_snap_staged = False
+            plan = sched.plan_iteration(now)
+            self._process_events()
+            if plan.empty:
+                self._step_snap = None
+                self.flush_pipeline()
+                self._t_last_enqueue = None
+                self._last_event = None
+                return bool(
+                    sched.online_q or sched.offline_q or sched.running
+                    or sched.preempted
+                )
+            samplers, inputs = self._build_fused(plan)
+        else:
+            plan, samplers, inputs = staged.plan, staged.samplers, staged.inputs
+            if self.faults is not None:
+                # the speculation's snapshot predates every mutation of the
+                # staged plan: it is the rollback cut
+                self._step_snap = staged.snap
+                self._step_snap_staged = True
+            # Algorithm 2 measures the batch in flight from its dispatch
+            sched.t_sched = now
+            self._process_events()
+        self.steps += 1
+        t_iter0 = time.perf_counter()
+        predicted_s = self.sched.model.iter_time(plan.shape)
+        self._arm_iteration_faults(plan)
+
+        preemptible = (
+            plan.pure_offline
+            and self.ec.enable_safepoints
+            and sched.sc.preempt_running
+        )
+        if not preemptible:
+            self.flag.clear()
+        logits, aborted = self._dispatch_fused(*inputs, preemptible=preemptible)
+        if aborted:
+            sched.commit(plan, self._clock(), aborted=True, tokens={})
+        else:
+            if samplers:
+                self._sample_async(logits, samplers)
+            self._last_event = _record_event(self.device)
+            self._t_last_enqueue = time.perf_counter()
+            # tokens=None counts the generated tokens without their values;
+            # the pending fetch appends them before any host code reads them
+            sched.commit(plan, self._clock(), aborted=False, tokens=None)
+        self._step_snap = None
+        self.measured_iter_seconds += time.perf_counter() - t_iter0
+        self.predicted_iter_seconds += predicted_s
+        self.measured_iters += 1
+        if aborted:
+            return True
+
+        # the post-work runs before the speculation's snapshot, so a rollback
+        # reverts only the speculative plan's own mutations
+        self._resolve_ckpt_pending()
+        self._checkpoint_after(plan)
+        self._resolve_fetches(keep_latest=True)
+        for sid in self.host.seq_ids():
+            if not self.blocks.has_seq(sid):
+                self.host.drop_seq(sid)
+        self._speculate()
+        return True
+
+    def _sample_async(self, logits: torch.Tensor, samplers: List[tuple]) -> None:
+        """Enqueue ``sample_rows`` over the sampled rows (padded to a
+        power-of-two bucket by repeating the last) and start its fetch, with
+        the top-2 logits when margins are recorded."""
+        rows = [i for i, _ in samplers]
+        rows += [rows[-1]] * (pow2_bucket(len(rows)) - len(rows))
+        rows_d = self._put(np.asarray(rows, np.int64))
+        self._pipeline_shapes.add(("sample_rows", logits.shape[0], len(rows)))
+        sampled = sample_rows(logits, rows_d, self.sampling, self._gen)
+        top2 = None
+        if self.margins is not None:
+            top2 = torch.topk(logits.index_select(0, rows_d), 2, dim=-1).values
+        self._fetches.append(_PendingFetch(sampled, [r for _, r in samplers], top2))
+
+    def _speculate(self) -> None:
+        """Plan and build iteration N+1 while N runs on the device (§13).
+        The scheduler snapshot makes the plan previewable: every mutation
+        planning makes (admissions, block growth, preemption, resume,
+        events) rolls back with ``restore`` if the staged batch is discarded.
+        Device work enqueued for it (input copies, the injection) then goes
+        unread."""
+        snap = self.sched.snapshot()
+        plan = self.sched.plan_iteration(self._clock())
+        if plan.empty:
+            self.sched.restore(snap)
+            return
+        samplers, inputs = self._build_fused(plan)
+        self._staged = _StagedBatch(plan, snap, self._plan_gen, samplers, inputs)
+
+    def _resolve_fetches(self, keep_latest: bool = False) -> None:
+        """Backfill ``Request.output_tokens`` from pending fetches, oldest
+        first.  ``keep_latest`` leaves the newest in flight: in steady state
+        that is the iteration still on the device, which speculation reads
+        by ``inject_sampled``."""
+        keep = 1 if keep_latest else 0
+        while len(self._fetches) > keep:
+            self._fetches.popleft().resolve(self._wait, self.margins)
 
     # ------------------------------------------------ split per-family paths
     @staticmethod
@@ -969,23 +1302,24 @@ class RealEngine:
         row (paged) or throwaway caches allocated per call (contiguous, as
         in the reference: its decode times include that allocation), so
         calibration never perturbs live KV.  On a mesh every probe is the
-        sharded dispatch, and its timer waits for every device of the mesh."""
+        sharded dispatch, and its timer waits for every device of the mesh.
+        The fused probes run at ``grid.pipeline_depth`` (4 by default on a
+        pipelined engine); the split and contiguous paths ignore it, as in
+        the reference."""
         if grid is None:
             grid = self._default_grid()
-        if grid.pipeline_depth != 1:
-            raise NotImplementedError(
-                "pipelined calibration needs the async pipeline, not ported "
-                "yet (ROADMAP Queue 1: the async pipeline)"
-            )
         dev = self.device
         max_ctx = self.ec.max_model_len
         scratch = self._scratch_block
 
-        def run(fn) -> None:
-            fn()
+        def sync() -> None:
             for d in self._devices():
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
+
+        def run(fn) -> None:
+            fn()
+            sync()
 
         def timed(fn) -> float:
             for _ in range(grid.warmup):
@@ -995,6 +1329,25 @@ class RealEngine:
                 t0 = time.perf_counter()
                 run(fn)
                 best = min(best, time.perf_counter() - t0)
+            return best
+
+        def timed_fused(fn) -> float:
+            """A fused probe at ``grid.pipeline_depth``: depth 1 is the serial
+            engine's enqueue-then-wait; a larger depth enqueues that many
+            iterations back to back and waits once, pricing the pipelined
+            steady state (host work overlapped with device work, §13)."""
+            depth = max(1, grid.pipeline_depth)
+            if depth == 1:
+                return timed(fn)
+            for _ in range(grid.warmup):
+                run(fn)
+            best = float("inf")
+            for _ in range(grid.repeats):
+                t0 = time.perf_counter()
+                for _ in range(depth):
+                    fn()
+                sync()
+                best = min(best, (time.perf_counter() - t0) / depth)
             return best
 
         fused_timer = None
@@ -1017,11 +1370,11 @@ class RealEngine:
 
             def prefill_timer(b: int, c: int) -> float:
                 b, c = pow2_bucket(b), self._chunk_bucket(min(c, max_ctx))
-                return timed(probe([(c, 0, None, None)] * b))
+                return timed_fused(probe([(c, 0, None, None)] * b))
 
             def decode_timer(b: int, ctx: int) -> float:
                 ctx = max(1, min(ctx, max_ctx - 1))
-                return timed(probe([(1, ctx, None, None)] * b))
+                return timed_fused(probe([(1, ctx, None, None)] * b))
 
             def fused_timer(tok: int, kv: int):
                 c = min(self.sched.sc.chunk_size, max_ctx, tok)
@@ -1034,7 +1387,7 @@ class RealEngine:
                     prefill_ctx_end=c, decode_tokens=ndec,
                     decode_ctx=ndec * kv, num_seqs=1 + ndec,
                 )
-                return shape, timed(probe(items))
+                return shape, timed_fused(probe(items))
         elif not self.paged:
             def prefill_timer(b: int, c: int) -> float:
                 del b  # contiguous prefill is one sequence per dispatch
@@ -1107,6 +1460,9 @@ class RealEngine:
                              if self.paged else (1,)),
             decode_buckets=pow2s(pow2_bucket(self.sched.sc.max_batch_seqs)),
             token_buckets=(tok0, 2 * tok0) if self.fused else (),
+            # a pipelined engine serves back-to-back enqueues: price that
+            # steady state, not the serial cadence it never runs (§13)
+            pipeline_depth=4 if self.pipeline else 1,
         )
 
     def run(self, max_steps: Optional[int] = None) -> None:
@@ -1114,3 +1470,6 @@ class RealEngine:
         for _ in range(limit):
             if not self.step():
                 break
+        # a step limit can stop the loop mid-flight: tokens and the host
+        # store must still be complete (§13)
+        self.flush_pipeline()

@@ -162,11 +162,14 @@ def test_engine_refuses_what_is_not_ported():
     cfg = get_config_t("llama-2-7b").reduced()
     params = bridge.to_torch(_weights("llama-2-7b")[2])
     windowed = dataclasses.replace(cfg, sliding_window=8)  # a ring cache
-    for c, kw, item in [(cfg, dict(pipeline=True), "Queue 1: the async pipeline"),
-                        (windowed, dict(backend="contiguous"),
-                         "Queue 1: the contiguous fallback's other archs")]:
-        with pytest.raises(NotImplementedError, match=item):
-            engine_t.RealEngine(c, params, eng_cfg=engine_t.RealEngineConfig(**kw),
+    with pytest.raises(NotImplementedError, match="Queue 1: the contiguous fallback's other archs"):
+        engine_t.RealEngine(windowed, params,
+                            eng_cfg=engine_t.RealEngineConfig(backend="contiguous"), device="cpu")
+    # the pipeline runs on the fused paged backend only, as in the reference
+    for kw in (dict(pipeline=True, fused_batch=False),
+               dict(pipeline=True, backend="contiguous")):
+        with pytest.raises(ValueError, match="pipeline=True requires the fused paged backend"):
+            engine_t.RealEngine(cfg, params, eng_cfg=engine_t.RealEngineConfig(**kw),
                                 device="cpu")
     # tensor parallelism is ported for the paged backend only, as in the
     # reference; a mesh must come from make_serving_mesh

@@ -20,6 +20,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config as get_config_t  # noqa: E402
 from repro_torch.core.profiler import BatchShape, CalibrationGrid, MeasuredProfiler  # noqa: E402
 from repro_torch.core.request import Priority, Request  # noqa: E402
+from repro_torch.models import transformer as tf_t  # noqa: E402
 from repro_torch.serving import real_engine as engine_t  # noqa: E402
 from test_backend_differential import CASES  # noqa: E402
 from test_torch_engine import MARGIN_BOUND, _prompt, _run_port, _run_reference, _weights  # noqa: E402
@@ -118,5 +119,22 @@ def test_default_grid_covers_the_serve_time_buckets():
     assert g.prefill_batches == (1, 2, 4, 8)
     assert g.decode_buckets == tuple(2**i for i in range(9))  # up to 256
     assert g.token_buckets == () and fused._default_grid().token_buckets == (64, 128)
-    with pytest.raises(NotImplementedError, match="Queue 1: the async pipeline"):
-        split.calibrate(dataclasses.replace(GRID, pipeline_depth=4))
+    assert g.pipeline_depth == fused._default_grid().pipeline_depth == 1
+    # a split engine ignores the pipeline depth, as in the reference: the
+    # same probes, each run warmup + repeats times, as at depth 1
+    calls = []
+    for depth in (1, 4):
+        n = [0]
+        step = tf_t.decode_step_paged
+
+        def counted(*a, **kw):
+            n[0] += 1
+            return step(*a, **kw)
+
+        tf_t.decode_step_paged = counted
+        try:
+            prof = split.calibrate(dataclasses.replace(GRID, pipeline_depth=depth))
+        finally:
+            tf_t.decode_step_paged = step
+        calls.append((n[0], [s for s, _ in prof.samples]))
+    assert calls[0] == calls[1] and calls[0][0] > 0

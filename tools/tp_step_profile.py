@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Decode step of the port's fused engine at tp = 1 and tp = 2 on one card.
 
-    python3 tools/tp_step_profile.py [--src DIR] [--tp 1,2] [--repeats 3]
+    python3 tools/tp_step_profile.py [--src DIR] [--tp 1,2] [--repeats 3] [--pipeline]
 
 Builds Llama-2-7B at full width (bf16, random weights from seed 0) on the
 fused path of ``repro_torch``'s ``RealEngine`` -- at tp = 2 over a
@@ -14,7 +14,10 @@ with the card's name and power limit.
 
 ``--src`` points at another checkout's ``src`` (a parent commit, unpacked
 with ``git archive``), so two versions are compared in one call; a tree
-without tensor parallelism runs tp = 1 only.  Needs a CUDA card.
+without tensor parallelism runs tp = 1 only.  ``--pipeline`` runs the
+engine with ``RealEngineConfig(pipeline=True)`` (the async pipeline,
+DESIGN.md §13), so serial and pipelined steps are compared in one call.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ def main() -> int:
     ap.add_argument("--tp", default="1,2")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--pipeline", action="store_true")
     args = ap.parse_args()
     os.environ.setdefault("TEARDOWN_CUPTI", "1")  # as chip_smoke.py: profiles end cleanly
     import numpy as np
@@ -72,6 +76,8 @@ def main() -> int:
             dev = torch.device("cuda", torch.cuda.current_device())
             mesh = make_serving_mesh(tp, devices=[dev] * tp)
         kw = {} if mesh is None else {"mesh": mesh}
+        if args.pipeline:
+            kw["pipeline"] = True
         eng = RealEngine(cfg, params, eng_cfg=RealEngineConfig(**kw), device="cuda")
         rng = np.random.default_rng(1)
         for _ in range(8):
@@ -92,7 +98,8 @@ def main() -> int:
                     eng.step()
                 torch.cuda.synchronize()
             busy = device_busy_ms(torch, prof) / args.steps
-            print(json.dumps({"src": args.src, "tp": tp, "repeat": rep,
+            print(json.dumps({"src": args.src, "tp": tp, "pipeline": args.pipeline,
+                              "repeat": rep,
                               "host_step_ms": host, "device_busy_ms": busy,
                               "card": smi}), flush=True)
         del eng
