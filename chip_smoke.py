@@ -15,10 +15,12 @@ any failure exits non-zero before the result lines:
    instantiation (a bf16 tensor-core or split-merge kernel that spills
    fails).
 2. Each hand-written kernel against its plain PyTorch version on the card,
-   at fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B attention shapes,
-   with cases at the tensor-core kernels' 16-row and 64-key edges, and
-   decode batches that the bf16 decode kernel cuts into several key splits
-   (``DECODE_CASES``; each logs its splits).
+   at fp32 and bf16, at the attention shapes of ``ATTN_SHAPES``
+   (Llama-2-7B, Qwen2-0.5B, gemma-7b's head dim 256, yi-34b's and
+   command-r-plus-104b's groups of 7 and 12), with cases at the
+   tensor-core kernels' 16-row and 64-key edges, and decode batches that
+   the bf16 decode kernel cuts into several key splits (``DECODE_CASES``;
+   each logs its splits).
 3. Llama-2-7B at full width (bf16, 32 layers, random weights from a seed)
    served through ``repro_torch.launch.serve.run_real`` on the fused path:
    online streams arrive while an offline batch job runs on a pool small
@@ -113,11 +115,27 @@ any failure exits non-zero before the result lines:
    one, and phase 3's workload on it; (e) 7(c)'s replay through
    ``CoServingRuntime`` over a pipelined engine (PIPELINED_ONLINE_AT): at
    least one safepoint abort, lossless streams, tokens equal to 7(c)'s.
+10. The other architectures, gemma-7b (GeGLU, tied embeddings, D = 256)
+   and olmoe-1b-7b (64 experts, top 8), each at full width and depth with
+   random weights from seed 0, after Llama's engines are freed (memory
+   logged): (a) phase 3's workload at bf16 with ``--arch`` on the fused,
+   split and contiguous paths, counted as phases 3-3c count (every request
+   finishes; ragged launches per fused iteration = layers; gathers run),
+   each path's dispatches reading nothing back, the fused decode step
+   profiled with the experts' ``aten::bmm`` share; (b) phase 4's legs at
+   fp32: preempted against uninterrupted, split and contiguous tokens up to
+   the first near-tie (olmoe's contiguous leg, whose segmented decode routes
+   at capacity factor 1.25 as the reference's does, only reported);
+   (c) gemma's ``forward_full`` on 1024 tokens at fp32 against the flash
+   kernel's plain version (FULL_TOL); (d) the kernel line's
+   ``head_dim_256`` entries: each kernel at gemma's heaviest call of its
+   path and the attention kernels at 2-4 thousand-token contexts.
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -406,6 +424,21 @@ FLASH_CASES = [
 ]
 
 
+# Attention shapes (H, Hkv, D) of phase 2 per arch, and the softcaps each is
+# checked at: Llama-2-7B and Qwen2-0.5B as before; gemma-7b's D = 256 at
+# both; yi-34b's G = 7 and command-r-plus-104b's G = 12 at D = 128 without
+# a softcap (the fp32 decode kernel's 16 outputs per thread at G = 12).
+ATTN_SHAPES = {
+    "llama-2-7b": (32, 32, 128), "qwen2-0.5b": (14, 2, 64), "gemma-7b": (16, 16, 256),
+    "yi-34b": (56, 8, 128), "command-r-plus-104b": (96, 8, 128),
+}
+SOFTCAPS = {"yi-34b": (0.0,), "command-r-plus-104b": (0.0,)}
+
+
+def softcaps(arch: str):
+    return SOFTCAPS.get(arch, (0.0, 30.0))
+
+
 def flash_case(torch, dtype, h, hkv, d, b, tq, tk, seed, spare=40):
     """q (B, Tq, H, D) and k, v as the first Tk slots of (B, Tk + spare,
     Hkv, D) caches."""
@@ -417,12 +450,12 @@ def flash_case(torch, dtype, h, hkv, d, b, tq, tk, seed, spare=40):
 
 
 def check_flash(torch, fa):
-    """Phase 2, flash_attention: every FLASH_CASES entry at softcap 0 and 30,
-    fp32 and bf16, at the Llama-2-7B and Qwen2-0.5B shapes."""
+    """Phase 2, flash_attention: every FLASH_CASES entry at each arch's
+    softcaps, fp32 and bf16, at every ATTN_SHAPES entry."""
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
+        for arch, (h, hkv, d) in ATTN_SHAPES.items():
             for case, b, tq, tk, causal, window, off in FLASH_CASES:
-                for cap in (0.0, 30.0):
+                for cap in softcaps(arch):
                     q, k, v = flash_case(torch, dtype, h, hkv, d, b, tq, tk, 5)
                     kw = dict(causal=causal, sliding_window=window, q_offset=off,
                               logit_softcap=cap)
@@ -442,8 +475,8 @@ def check_kernels(torch, ops, rpa, cg, fa):
     """Phase 2: every kernel against its plain version, fp32 and bf16."""
     check_flash(torch, fa)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
-            for cap in (0.0, 30.0):
+        for arch, (h, hkv, d) in ATTN_SHAPES.items():
+            for cap in softcaps(arch):
                 for case, kw in DECODE_CASES.items():
                     q, kp, vp, tb, lens, cap = decode_case(torch, dtype, h, hkv, d, cap, 4, **kw)
                     merges = rpa.paged_attention.merge_launches
@@ -805,7 +838,7 @@ def time_decode_stacking(torch, eng, n: int = 12):
     del caches, out
 
 
-def profile_steps(torch, eng, steps: int = 6, figures=None):
+def profile_steps(torch, eng, steps: int = 6, figures=None, op_names=()):
     """Where an iteration's time goes, on the served engine with 8 fresh
     offline requests (64-token prompts) decoding: ``steps`` steps timed
     without the profiler, then ``steps`` more under ``torch.profiler``.
@@ -815,7 +848,9 @@ def profile_steps(torch, eng, steps: int = 6, figures=None):
     calls, name) per step, or None where the profiler cannot trace the
     card: that is reported, not fatal.  ``figures`` (a dict) receives the
     step and busy times as text, and the p50 and p99 of the engine's
-    ``host_gap_s`` samples over the unprofiled steps (``"gap"``)."""
+    ``host_gap_s`` samples over the unprofiled steps (``"gap"``).  It also
+    prints the device time per step of the kernels launched by each
+    operator of ``op_names`` (for example ``aten::bmm``, the MoE experts)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -849,9 +884,12 @@ def profile_steps(torch, eng, steps: int = 6, figures=None):
             wall = time.perf_counter() - t0
         # kernels only: an operator's row repeats the device time of the
         # kernels it launched
+        events = prof.key_averages()
         rows = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
-                 e.count, e.key) for e in prof.key_averages()
+                 e.count, e.key) for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        op_ms = {e.key: (getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
+                 / steps / 1e3 for e in events if e.key in op_names}
     except Exception as e:  # noqa: BLE001 -- a measurement, not the port
         log(f"  profiler unavailable: {e!r}")
         return None
@@ -868,6 +906,11 @@ def profile_steps(torch, eng, steps: int = 6, figures=None):
     log(f"  decode steps: {text}")
     if figures is not None:
         figures["decode"] = text
+    if op_names:
+        log("  by operator: " + ", ".join(
+            f"{name} {op_ms.get(name, 0.0):.3f} ms/step = "
+            f"{op_ms.get(name, 0.0) / (busy * 1e3 / steps):.1%} of device busy"
+            for name in op_names))
     for i, (us, n, name) in enumerate(rows):
         if i < 10 or "(anonymous namespace)::" in name:
             log(f"    {us / 1e3:8.3f} ms/step  {n:5d} calls/step  {name[:90]}")
@@ -949,16 +992,18 @@ def decode_entry(torch, rpa, args, spec, timer):
     }
 
 
-def long_context_entries(torch, rpa, spec, timer):
+def long_context_entries(torch, rpa, spec, timer, shape=(32, 32, 128), qwen=True):
     """Both paged attention kernels on the same long-context inputs: the
-    ragged kernel on every ``LONG_CASES`` batch at the Llama-2-7B shape and
-    on the decode batch at the Qwen2-0.5B shape (14 query heads on 2 KV
-    heads, D = 64), the decode kernel on both decode batches recast as
-    q (B, H, D) and seq_lens = kv_lens (at Qwen2-0.5B's 32 (sequence, KV
-    head) pairs it splits the keys)."""
+    ragged kernel on every ``LONG_CASES`` batch at ``shape`` (H, Hkv, D;
+    Llama-2-7B's by default, gemma-7b's in phase 10) and, with ``qwen``, on
+    the decode batch at the Qwen2-0.5B shape (14 query heads on 2 KV heads,
+    D = 64), the decode kernel on the decode batches recast as q (B, H, D)
+    and seq_lens = kv_lens (at Qwen2-0.5B's 32 (sequence, KV head) pairs it
+    splits the keys)."""
     ragged, decode = [], []
-    cases = [(case, kw, (32, 32, 128)) for case, kw in LONG_CASES.items()]
-    cases.append(("qwen2-0.5b decode", LONG_CASES["decode"], (14, 2, 64)))
+    cases = [(case, kw, shape) for case, kw in LONG_CASES.items()]
+    if qwen:
+        cases.append(("qwen2-0.5b decode", LONG_CASES["decode"], (14, 2, 64)))
     for case, kw, (h, hkv, d) in cases:
         args = attention_case(torch, torch.bfloat16, h, hkv, d, 0.0, 3, **kw)
         lens = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
@@ -1048,12 +1093,14 @@ def flash_entry(torch, fa, args, spec, timer):
     }
 
 
-def flash_long_entries(torch, fa, spec, timer):
-    """The flash kernel at forward_full's shapes: one Llama-2-7B sequence
-    of 2048 and of 4096 tokens, causal, bf16."""
+def flash_long_entries(torch, fa, spec, timer, shape=(32, 32, 128)):
+    """The flash kernel at forward_full's shapes: one sequence of 2048 and
+    of 4096 tokens at ``shape`` (H, Hkv, D; Llama-2-7B's by default),
+    causal, bf16."""
     out = []
+    h, hkv, d = shape
     for t in (2048, 4096):
-        q, k, v = flash_case(torch, torch.bfloat16, 32, 32, 128, 1, t, t, 6, spare=0)
+        q, k, v = flash_case(torch, torch.bfloat16, h, hkv, d, 1, t, t, 6, spare=0)
         kw = dict(causal=True, sliding_window=0, q_offset=0, logit_softcap=0.0)
         entry = {"case": f"forward_full T={t}", **flash_entry(torch, fa, (q, k, v, kw),
                                                                spec, timer)}
@@ -1063,15 +1110,15 @@ def flash_long_entries(torch, fa, spec, timer):
     return out
 
 
-def forward_full_check(torch, ops, fa, tf, t: int = 2048):
-    """Phase 4b: ``forward_full`` of Llama-2-7B at full width, fp32 weights
-    from a seed, on one ``t``-token sequence: flash kernel launches counted
-    (zeroed just before, read just after), then the same forward with the
-    kernel's plain version; the last position's logits must agree within
-    FULL_TOL."""
+def forward_full_check(torch, ops, fa, tf, t: int = 2048, arch: str = "llama-2-7b"):
+    """Phase 4b (and 10(c) for gemma-7b): ``forward_full`` of ``arch`` at
+    full width, fp32 weights from a seed, on one ``t``-token sequence: flash
+    kernel launches counted (zeroed just before, read just after), then the
+    same forward with the kernel's plain version; the last position's
+    logits must agree within FULL_TOL."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("llama-2-7b")
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tf.init_params(cfg, gen, dtype=torch.float32)
     toks = torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device="cuda")
@@ -1095,7 +1142,7 @@ def forward_full_check(torch, ops, fa, tf, t: int = 2048):
         ops.flash_attention = kernel
     want = logits[0, -1]
     err = (got - want).abs().max().item()
-    log(f"  forward_full (1, {t}) fp32: flash_attention launches={launches}; last-position "
+    log(f"  {arch} forward_full (1, {t}) fp32: flash_attention launches={launches}; last-position "
         f"logits kernel vs plain max_abs_err={err:.3e} (|logits| max "
         f"{want.abs().max().item():.3f}; tolerance {FULL_TOL}); argmax "
         f"{int(got.argmax())} vs {int(want.argmax())}; {kernel_s * 1e3:.1f} ms vs "
@@ -1143,7 +1190,20 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
         "launches_forward_full": full_launches, **fmain, "shape": fshape,
         "long_context": flash_long_entries(torch, fa, spec, timer),
     })
-    pool, ids = args["checkpoint_gather"]
+    out.append({
+        "name": "checkpoint_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/checkpoint_gather.cu",
+        "replaces": "src/repro/kernels/kv_checkpoint.py:30",
+        "launches": counts["checkpoint_gather"],
+        **gather_entry(torch, cg, *args["checkpoint_gather"], spec, timer, control=True),
+    })
+    return out
+
+
+def gather_entry(torch, cg, pool, ids, spec, timer, control=False):
+    """Time, plain time, ``index_select`` time and bound of one checkpoint
+    gather; raises unless it equals its plain version exactly.  ``control``
+    adds its time under the Timer of earlier runs."""
     got = cg.checkpoint_gather(pool, ids)
     want = cg.checkpoint_gather_ref(pool, ids)
     if not torch.equal(got, want):
@@ -1151,44 +1211,48 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
                              f"{ids.numel()} ids")
     err = (got.float() - want.float()).abs().max().item()
     nbytes = 2 * got.numel() * got.element_size() + ids.numel() * 4
-    out.append({
-        "name": "checkpoint_gather", "route": "cuda",
-        "source": "src/repro_torch/csrc/checkpoint_gather.cu",
-        "replaces": "src/repro/kernels/kv_checkpoint.py:30",
-        "launches": counts["checkpoint_gather"], "max_abs_err": err,
-        **timed(timer, lambda: cg.checkpoint_gather(pool, ids)),
-        # the control: the unchanged kernel under the Timer of earlier runs
-        "old_timer_ms": Timer(torch, device_wait=False).ms(lambda: cg.checkpoint_gather(pool, ids)),
+    entry = {"max_abs_err": err, **timed(timer, lambda: cg.checkpoint_gather(pool, ids))}
+    if control:  # the unchanged kernel under the Timer of earlier runs
+        entry["old_timer_ms"] = Timer(torch, device_wait=False).ms(
+            lambda: cg.checkpoint_gather(pool, ids))
+    return {
+        **entry,
         "plain_ms": timer.ms(lambda: cg.checkpoint_gather_ref(pool, ids)),
         "bound_ms": nbytes / spec.hbm_bw * 1e3, "bound_by": "bytes",
         "library_ms": timer.ms(lambda: pool.index_select(1, ids)),
         "shape": {"pool": list(pool.shape), "ids": ids.numel(), "dtype": str(pool.dtype)},
-    })
-    return out
+    }
 
 
-def add_build_reports(build, builds, line, ragged_args, decode_args):
+def add_build_reports(build, builds, line, ragged_args, decode_args, dims=(64, 128)):
     """Each kernel's ptxas report per instantiation (``build``), with the
-    dynamic shared memory of a block of each bf16 tensor-core kernel: the
-    flash kernel's is fixed, the ragged and decode kernels' at their paths'
-    heaviest calls (Qmax * G rows or G heads, page size, table width)."""
+    dynamic shared memory of a block of each attention kernel (bf16 tensor
+    core and fp32) at a head dim of ``dims``: the flash kernel's is fixed,
+    the ragged and decode kernels' at their paths' heaviest calls (Qmax * G
+    rows or G heads, page size, table width)."""
     q, kp, _vp, tb = ragged_args[:4]
     rows, page, m = q.shape[1] * (q.shape[2] // kp.shape[2]), kp.shape[1], tb.shape[1]
     group, split_m = decode_args[0].shape[1] // decode_args[1].shape[2], decode_args[3].shape[1]
+    split_page = decode_args[1].shape[1]
     for entry in line:
         name = entry["name"]
         report = builds.get(name)
         entry["build"] = report if report else "not built in this run"
         for inst, r in (report or {}).items():
-            d = re.search(r"_tc_kernel<(\d+)>", inst)
-            if d and name == "flash_attention":
-                r["dynamic_smem"] = smem_bytes(build, name, 1, int(d[1]))
-            elif d and name == "ragged_paged_attention":
-                r["dynamic_smem"] = smem_bytes(build, name, 1, int(d[1]), rows, page, m)
+            d = re.search(r"(_tc_kernel<|<float, )(\d+)", inst)
+            if not d or int(d[2]) not in dims:
+                continue
+            dtype, d = int(d[1] == "_tc_kernel<"), int(d[2])
+            if name == "flash_attention":
+                r["dynamic_smem"] = smem_bytes(build, name, dtype, d)
+            elif name == "ragged_paged_attention":
+                r["dynamic_smem"] = smem_bytes(build, name, dtype, d, rows, page, m)
                 r["dynamic_smem_at"] = {"rows": rows, "page": page, "table_width": m}
-            elif d and name == "paged_attention":
-                r["dynamic_smem"] = smem_bytes(build, name, 1, int(d[1]), group, split_m)
-                r["dynamic_smem_at"] = {"group": group, "table_width": split_m}
+            elif name == "paged_attention" and "merge" not in inst:
+                r["dynamic_smem"] = smem_bytes(build, name, dtype, d, group, split_page,
+                                               split_m)
+                r["dynamic_smem_at"] = {"group": group, "page": split_page,
+                                        "table_width": split_m}
 
 
 def calibrated_serve(torch, serve_mod, path, argv, mesh=None) -> str:
@@ -1691,22 +1755,29 @@ def full_heads(torch, hs):
     return torch.cat(hs.parts, dim=-2) if hs.sharded else hs.parts[0]
 
 
+# Phase 8(a)'s shapes: (arch, (H, Hkv, D), tensor-parallel sizes, softcaps).
+SHARDED_SHAPES = [("llama-2-7b", (32, 32, 128), (2, 4), (0.0, 30.0)),
+                  ("qwen2-0.5b", (14, 2, 64), (2, 4), (0.0, 30.0)),
+                  ("gemma-7b", (16, 16, 256), (2,), (0.0,))]
+
+
 def check_sharded_kernels(torch, rpa, make_mesh, place):
     """Phase 8(a): both sharded functions at tp 2 and 4, fp32 and bf16, at
-    the Llama-2-7B (32 / 32 heads) and Qwen2-0.5B (14 / 2) shapes, on phase
-    2's cases, over this card named tp times, against the unsharded plain
-    version at TOL.  Each call must launch once per shard, except Qwen2-0.5B
-    at tp 4, whose 2 KV heads replicate: one unsharded launch (the
-    fallback).  The decode cases log their key splits per shard."""
+    the Llama-2-7B (32 / 32 heads) and Qwen2-0.5B (14 / 2) shapes, and at
+    tp 2 at gemma-7b's (16 / 16, D = 256), on phase 2's cases, over this
+    card named tp times, against the unsharded plain version at TOL.  Each
+    call must launch once per shard, except Qwen2-0.5B at tp 4, whose 2 KV
+    heads replicate: one unsharded launch (the fallback).  The decode cases
+    log their key splits per shard."""
     dev = torch.device("cuda", torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ragged, decode = rpa.ragged_paged_attention_sharded, rpa.paged_attention_sharded
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for arch, (h, hkv, d) in (("llama-2-7b", (32, 32, 128)), ("qwen2-0.5b", (14, 2, 64))):
-            for tp in (2, 4):
+        for arch, (h, hkv, d), tps, caps in SHARDED_SHAPES:
+            for tp in tps:
                 mesh = make_mesh(tp, devices=[dev] * tp)
                 shards = tp if hkv % tp == 0 else 0
-                for cap in (0.0, 30.0):
+                for cap in caps:
                     calls = []
                     for case, kw in RAGGED_CASES.items():
                         q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d,
@@ -1738,7 +1809,7 @@ def check_sharded_kernels(torch, rpa, make_mesh, place):
                             raise AssertionError(f"sharded {case} disagrees ({dname}, {arch}, "
                                                  f"tp={tp})")
                 for fn in (ragged, decode):
-                    n = len(RAGGED_CASES if fn is ragged else DECODE_CASES) * 2
+                    n = len(RAGGED_CASES if fn is ragged else DECODE_CASES) * len(caps)
                     want = (n * shards, 0) if shards else (0, n)
                     if (fn.shard_launches, fn.fallbacks) != want:
                         raise AssertionError(f"{fn.__name__} tp={tp} {arch}: shard launches and "
@@ -2155,6 +2226,145 @@ def pipeline_phase(torch, ops, serve_mod, tf, timer, serial, replayed, phase3, f
                            against="pipelined runtime vs 7(c)'s serial runtime")
 
 
+# ------------------------------------------------------------------ phase 10
+# The other architectures at full width and depth, random weights from seed
+# 0, served with phase 3's workload (``--arch``) on the three paths.
+ARCH_SERVES = ("gemma-7b", "olmoe-1b-7b")
+PATHS = {"fused": [], "split": ["--no-fused-batch"], "contiguous": ["--backend", "contiguous"]}
+GEMMA_SHAPE = (16, 16, 256)  # gemma-7b's H, Hkv, D
+
+
+def arch_serves(torch, ops, serve_mod, tf, arch):
+    """Phase 10(a): phase 3's workload at bf16 with ``--arch`` on the fused,
+    split and contiguous paths, counted as phases 3-3c count (``run_serve``:
+    every request finishes, launches per layer of every dispatch, the
+    gathers run), each path's dispatches reading nothing back, the fused
+    decode step profiled (with the MoE experts' ``aten::bmm`` share), and
+    peak memory logged.  Returns per path (launch counts, heaviest calls)."""
+    out = {}
+    for path, extra in PATHS.items():
+        log(f"[10a] {arch} bf16, {path} path")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, counts, args = run_serve(torch, ops, serve_mod, tf,
+                                      SERVE_ARGV + ["--arch", arch] + extra)
+        eng, cfg = res["engine"], res["cfg"]
+        if path == "fused":
+            iters = eng.dispatches["fused_segment"] / len(tf.segment_spans(cfg))
+            log(f"  ragged launches per fused iteration: "
+                f"{counts['ragged_paged_attention'] / iters:.2f} ({cfg.num_layers} layers)")
+        check_reads_nothing_back(torch, tf, eng)
+        if path == "fused":
+            profile_steps(torch, eng, op_names=("aten::bmm",) if cfg.num_experts else ())
+        log(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"(weights {cfg.param_count() * 2 / 1e9:.2f} GB); "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[path] = (counts, args)
+        del res, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def arch_fp32_tokens(torch, serve_mod, arch, moe: bool):
+    """Phase 10(b): phase 4's legs at fp32 with ``--arch``: the preempted
+    fused run's tokens against an uninterrupted run's, the split path's and
+    the contiguous path's, up to the first near-tie.  A MoE arch's
+    contiguous path decodes through ``run_segment`` at capacity factor 1.25,
+    as the reference's engine does, where every other path routes dropless:
+    its tokens are reported against the fused run's, not required equal."""
+    argv32 = [a if a != "bfloat16" else "float32" for a in SERVE_ARGV] + ["--arch", arch]
+    runs = {}
+    for name, extra in (("preempted", []),
+                        ("uninterrupted", ["--num-device-blocks", "512"]),
+                        ("split preempted", ["--no-fused-batch"]),
+                        ("contiguous preempted", ["--backend", "contiguous"])):
+        t0 = time.perf_counter()
+        res = serve(serve_mod, argv32 + extra)
+        reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
+        if any(len(r.output_tokens) != MAX_NEW for r in reqs):
+            raise AssertionError(f"{arch} fp32 {name}: requests without all their tokens")
+        log(f"  {arch} fp32 {name}: preemptions={res['preemptions']} "
+            f"steps={res['engine'].steps} {time.perf_counter() - t0:.1f} s")
+        runs[name] = (res["preemptions"], offline_tokens(res))
+        del res, reqs
+        torch.cuda.empty_cache()
+    if (runs["preempted"][0] == 0 or runs["split preempted"][0] == 0
+            or runs["contiguous preempted"][0] == 0 or runs["uninterrupted"][0] != 0):
+        raise AssertionError(f"{arch}: phase 10 did not contrast preempted and "
+                             "uninterrupted runs")
+    fused = runs["preempted"][1]
+    compare_runs(f"{arch} preempted vs uninterrupted", fused, runs["uninterrupted"][1])
+    compare_runs(f"{arch} split vs fused, preempted", runs["split preempted"][1], fused)
+    contiguous = runs["contiguous preempted"][1]
+    if moe:
+        same = sum(ta == tb for (ta, _), (tb, _) in zip(contiguous, fused))
+        first = [next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+                 for (ta, _), (tb, _) in zip(contiguous, fused)]
+        log(f"  {arch} contiguous (segmented decode at capacity 1.25) vs fused (dropless): "
+            f"{same} of {len(fused)} requests identical; first differing token per request "
+            f"{first}")
+    else:
+        same = compare_runs(f"{arch} contiguous vs fused, preempted", contiguous, fused)
+        if same != len(fused):
+            raise AssertionError(f"{arch} contiguous vs fused: {same} of {len(fused)} "
+                                 "requests identical")
+
+
+def head_dim_256_entries(torch, rpa, cg, fa, serves, full_launches, spec, timer, line):
+    """Phase 5's kernel line at gemma-7b's D = 256: each kernel's launches
+    on gemma's serves (10a), its time, host enqueue, plain time, bound and
+    library time on the heaviest call of its path, and for attention the
+    same at 2-4 thousand-token contexts, under ``head_dim_256`` of its
+    entry."""
+    by_name = {e["name"]: e for e in line}
+    (counts, args), (split_counts, split_args), (contiguous_counts, contiguous_args) = (
+        serves[p] for p in PATHS)
+    main = attention_entry(torch, rpa, args["ragged_paged_attention"], spec, timer)
+    log(f"  ragged_paged_attention D=256, heaviest gemma-7b fused call: {main}")
+    dmain = decode_entry(torch, rpa, split_args["paged_attention"], spec, timer)
+    log(f"  paged_attention D=256, heaviest gemma-7b split call: {dmain}")
+    long_ragged, long_decode = long_context_entries(torch, rpa, spec, timer, GEMMA_SHAPE,
+                                                    qwen=False)
+    by_name["ragged_paged_attention"]["head_dim_256"] = {
+        "arch": "gemma-7b", "launches": counts["ragged_paged_attention"], **main,
+        "library_ms": None, "long_context": long_ragged}
+    by_name["paged_attention"]["head_dim_256"] = {
+        "arch": "gemma-7b", "launches": split_counts["paged_attention"],
+        "merge_launches": split_counts["paged_attention merges"], **dmain,
+        "library_ms": None, "long_context": long_decode}
+    fmain = flash_entry(torch, fa, contiguous_args["flash_attention"], spec, timer)
+    log(f"  flash_attention D=256, heaviest gemma-7b contiguous call: {fmain}")
+    by_name["flash_attention"]["head_dim_256"] = {
+        "arch": "gemma-7b", "launches": contiguous_counts["flash_attention"],
+        "launches_forward_full": full_launches, **fmain,
+        "long_context": flash_long_entries(torch, fa, spec, timer, GEMMA_SHAPE)}
+    gather = gather_entry(torch, cg, *args["checkpoint_gather"], spec, timer)
+    log(f"  checkpoint_gather, gemma-7b's leaf: {gather}")
+    by_name["checkpoint_gather"]["head_dim_256"] = {
+        "arch": "gemma-7b", "launches": counts["checkpoint_gather"], **gather}
+
+
+def arch_phase(torch, ops, rpa, cg, fa, serve_mod, tf, build, builds, spec, timer, line):
+    """Phase 10: gemma-7b and olmoe-1b-7b at full width and depth: (a) bf16
+    serves on the three paths, (b) fp32 token self-consistency across them,
+    (c) gemma's ``forward_full`` on 1024 tokens at fp32 against the flash
+    kernel's plain version, (d) the D = 256 kernel entries."""
+    gemma = None
+    for arch in ARCH_SERVES:
+        serves = arch_serves(torch, ops, serve_mod, tf, arch)
+        if arch == "gemma-7b":  # only gemma's captured calls are timed
+            gemma = serves
+        del serves
+        log(f"[10b] {arch} at fp32: preempted vs uninterrupted vs split vs contiguous")
+        arch_fp32_tokens(torch, serve_mod, arch, moe=arch == "olmoe-1b-7b")
+    log("[10c] gemma-7b forward_full at full width, fp32: flash kernel vs its plain version")
+    full_launches = forward_full_check(torch, ops, fa, tf, t=1024, arch="gemma-7b")
+    log("[10d] kernels at gemma-7b's head dim of 256")
+    head_dim_256_entries(torch, rpa, cg, fa, gemma, full_launches, spec, timer, line)
+    add_build_reports(build, builds, line, gemma["fused"][1]["ragged_paged_attention"],
+                      gemma["split"][1]["paged_attention"], dims=(256,))
+
+
 def launch_cost_us(torch, n: int = 20000) -> float:
     """Host time per launch of a small elementwise kernel (a chain of ``n``
     adds on a 256 x 256 tensor, then a synchronisation): what the host
@@ -2224,6 +2434,8 @@ def main() -> int:
         timer = Timer(torch)
         long_context_entries(torch, rpa, spec, timer)
         flash_long_entries(torch, fa, spec, timer)
+        long_context_entries(torch, rpa, spec, timer, GEMMA_SHAPE, qwen=False)
+        flash_long_entries(torch, fa, spec, timer, GEMMA_SHAPE)
         log(f"  Timer: {timer.late} repetitions reached their start event before the host "
             "had queued the call")
         log(f"  card: {smi}; total {time.perf_counter() - t_start:.1f} s")
@@ -2330,6 +2542,15 @@ def main() -> int:
     pipeline_phase(torch, ops, serve_mod, tf, timer, serial, replayed, fused_decode,
                    fused_profile, line)
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    log("[10] gemma-7b and olmoe-1b-7b at full width and depth")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  before phase 10: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    t10 = time.perf_counter()
+    arch_phase(torch, ops, rpa, cg, fa, serve_mod, tf, build, builds, spec, timer, line)
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -6,7 +6,10 @@ The input is the reference pytree as plain numpy arrays (for example
 module never imports JAX: nested dicts map to nested dicts, each array to
 a tensor on ``device``, and the period-major stacking is kept as it is.
 A contiguous cache tree (``{pos: {"k", "v", "pos"}}``) keeps its int32
-slot positions as int32.  Tests use it so both packages compute with the
+slot positions as int32.  Every leaf carries over, MoE layers' ``ffn``
+(``router``, ``w_up``, ``w_gate``, ``w_down``, the expert axis after the
+period axis) and a tied-embedding tree's (no ``lm_head``) included; a MoE
+``router`` stays fp32 when the rest is cast, as the reference keeps it.  Tests use it so both packages compute with the
 same weights and caches, with nothing downloaded, and compare the results.
 ``replicate`` places a tree on the devices of a tensor-parallel serving
 mesh, where params replicate (DESIGN.md §11).
@@ -19,11 +22,17 @@ import numpy as np
 import torch
 
 
+# leaves that stay fp32 whatever ``dtype`` the rest is cast to
+FP32_LEAVES = ("router",)
+
+
 def to_torch(tree: Any, device="cpu", dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts of arrays -> the same dicts of tensors on ``device``
-    (cast to ``dtype`` when given; integer leaves keep their type)."""
+    (cast to ``dtype`` when given, but for ``FP32_LEAVES``; integer leaves
+    keep their type)."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: to_torch(v, device, None if k in FP32_LEAVES else dtype)
+                for k, v in tree.items()}
     t = torch.from_numpy(np.array(tree, copy=True)).to(device)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)

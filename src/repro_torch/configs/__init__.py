@@ -11,7 +11,11 @@ from typing import Dict
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "command-r-plus-104b": "command_r_plus_104b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "yi-34b": "yi_34b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "gemma-7b": "gemma_7b",
     # the paper's own evaluation model
     "llama-2-7b": "llama2_7b",
 }

@@ -2,8 +2,10 @@
 // ragged_paged_attention.cu: device functions only, no kernel and no C
 // interface.
 //
-// One warp owns 16 query rows.  Its q rows stay in registers as the
-// A-fragments of mma.sync.m16n8k16 (bf16 inputs, fp32 accumulation); for
+// One warp owns 16 query rows.  At D <= 128 its q rows stay in registers
+// as the A-fragments of mma.sync.m16n8k16 (bf16 inputs, fp32 accumulation);
+// at D = 256 they are read from the block's shared q rows, one 16-deep
+// chunk at a time (WarpTile::kQShared below).  For
 // each shared K/V tile of kTileKeys keys it computes S = Q K^T into fp32
 // registers, applies the scale and the optional softcap there, runs the
 // online softmax on the registers, packs P to bf16 A-fragments straight
@@ -16,8 +18,8 @@
 //
 // Shared K, V and q rows are D bf16 plus a 16-byte pad (kRowPad): the 8
 // rows that one ldmatrix phase reads then start 16 bytes apart modulo 128,
-// on 8 different bank groups, so ldmatrix has no bank conflicts at D = 64
-// or 128.
+// on 8 different bank groups, so ldmatrix has no bank conflicts at D = 64,
+// 128 or 256.
 //
 // The one rounding this adds to the plain version's arithmetic is P to
 // bf16 before P V (l sums the fp32 probabilities); scores, the softmax and
@@ -60,12 +62,17 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+// Four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of matrix i
+// (as a shared-window address, or as a pointer).
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
+               : "r"(addr)
                : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  ldmatrix_x4_at(r, smem_u32(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
@@ -116,11 +123,22 @@ __device__ __forceinline__ int warp_max(int v) {
 // One warp's 16 query rows.  Row i (0: lane / 4, 1: lane / 4 + 8) keeps the
 // keys in [lo[i], hi[i]); a row that does not exist has lo = kNoKey and
 // hi = -kNoKey, keeps nothing and takes no part in the warp's key range.
+//
+// Registers: O takes D / 2 fp32 registers per lane and a 64-key tile's
+// scores 32 more.  Keeping q's D / 4 fragment registers beside them fits at
+// D <= 128 but not at D = 256 (64 + 128 + 32 before any address or loop
+// state, against 255), so there kQShared keeps only the shared address of
+// the lane's q row and each tile reads the 16 q fragments again with
+// ldmatrix (16 per 64-key tile, beside the tile's 64 for K and 64 for V).
+// Every kernel that uses the tile keeps its q rows in shared memory for the
+// whole key loop.
 template <int D>
 struct WarpTile {
   static constexpr int kK = D / 16;  // 16-deep chunks of a q row
   static constexpr int kN = D / 8;   // 8-wide column tiles of O
-  uint32_t q[kK][4];                 // A-fragments of the 16 q rows
+  static constexpr bool kQShared = D > 128;
+  uint32_t q[kQShared ? 1 : kK][4];  // A-fragments of the 16 q rows (D <= 128)
+  unsigned q_addr;                   // this lane's shared q address (D > 128)
   float o[kN][4];                    // O accumulators
   float m[2];                        // running max of log2-scaled scores
   float l[2];                        // this lane's part of the running sum
@@ -158,12 +176,17 @@ struct WarpTile {
     }
   }
 
-  // q rows 0..15 of this warp from shared rows of `stride` elements.
+  // q rows 0..15 of this warp from shared rows of `stride` elements (at
+  // D > 128 only their address: the rows must stay there).
   __device__ __forceinline__ void load_q(const __nv_bfloat16* q_s, int stride) {
     const int lane = threadIdx.x & 31;
     const __nv_bfloat16* p = q_s + (lane & 15) * stride + (lane >> 4) * 8;
+    if constexpr (kQShared) {
+      q_addr = smem_u32(p);
+    } else {
 #pragma unroll
-    for (int kc = 0; kc < kK; ++kc) ldmatrix_x4(q[kc], p + 16 * kc);
+      for (int kc = 0; kc < kK; ++kc) ldmatrix_x4(q[kc], p + 16 * kc);
+    }
   }
 
   // Narrows [c0, c1), this warp's 16-key chunks of the tile whose first key
@@ -190,15 +213,32 @@ struct WarpTile {
     // S = Q K^T: one ldmatrix.x4 gives the B-fragments of two 8-key tiles
     const __nv_bfloat16* kp =
         k_s + ((lane & 7) + ((lane >> 4) << 3)) * stride + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      if (c < c0 || c >= c1) continue;
+    if constexpr (kQShared) {
+      // one 16-deep chunk of q at a time, read once for all the tile's keys
 #pragma unroll
       for (int kc = 0; kc < kK; ++kc) {
-        uint32_t b[4];
-        ldmatrix_x4(b, kp + 16 * c * stride + 16 * kc);
-        mma_bf16(s[2 * c], q[kc], b[0], b[1]);
-        mma_bf16(s[2 * c + 1], q[kc], b[2], b[3]);
+        uint32_t qa[4];
+        ldmatrix_x4_at(qa, q_addr + 32u * kc);  // 16 bf16 further along the row
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (c < c0 || c >= c1) continue;
+          uint32_t b[4];
+          ldmatrix_x4(b, kp + 16 * c * stride + 16 * kc);
+          mma_bf16(s[2 * c], qa, b[0], b[1]);
+          mma_bf16(s[2 * c + 1], qa, b[2], b[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (c < c0 || c >= c1) continue;
+#pragma unroll
+        for (int kc = 0; kc < kK; ++kc) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kp + 16 * c * stride + 16 * kc);
+          mma_bf16(s[2 * c], q[kc], b[0], b[1]);
+          mma_bf16(s[2 * c + 1], q[kc], b[2], b[3]);
+        }
       }
     }
 

@@ -29,7 +29,8 @@
 //
 // bf16 (flash_tc_kernel): the tensor cores.  One block of 4 warps per
 // (64-row query tile, query head, batch); each warp holds 16 query rows as
-// mma.sync.m16n8k16 A-fragments (attention_tile.cuh), and K/V tiles of 64
+// mma.sync.m16n8k16 A-fragments (attention_tile.cuh; at D = 256 it reads
+// them from the shared q tile per 16-deep chunk), and K/V tiles of 64
 // keys stream through a two-stage ring of 16-byte cp.async copies, the next
 // tile in flight while the current one is multiplied.  S = Q K^T, the
 // online softmax and O += P V all stay in registers; P goes to bf16 once,
@@ -51,7 +52,10 @@
 // fp32 (flash_kernel): the CUDA cores, kept as it is to hold the port
 // against the reference at fp32 (a TF32 product would change those
 // numbers).  One block of 256 threads per (64-row query tile, query head,
-// batch); q in shared memory, the same two-stage K/V ring; each thread
+// batch); q in shared memory, the same two-stage K/V ring (one stage at
+// D = 256, where two would need 351,232 bytes of shared memory against the
+// 232,448 a block may have: the next tile's copies then wait for the
+// current one's products); each thread
 // holds a 2 x 8 block of the 64 x 64 score tile and 2 rows x D/8 columns of
 // the accumulator in registers; the 8 lanes that share a row reduce its max
 // and sum with shuffles, and the probabilities go through shared memory to
@@ -110,11 +114,20 @@ __host__ __device__ constexpr int row_elems() {
   return D + 16 / (int)sizeof(T);
 }
 
-// Shared memory: q [kRows][row], K ring [2][kKeys][row], V ring
-// [2][kKeys][row], then fp32 probabilities [kRows][kPStride].
+// K/V tiles in the ring: two, or one where two do not fit (fp32, D = 256).
+template <typename T, int D>
+__host__ __device__ constexpr int stages() {
+  return (kRows + 4 * kKeys) * row_elems<T, D>() * sizeof(T) + kRows * kPStride * sizeof(float) <=
+                 232448
+             ? 2
+             : 1;
+}
+
+// Shared memory: q [kRows][row], K ring [stages][kKeys][row], V ring
+// [stages][kKeys][row], then fp32 probabilities [kRows][kPStride].
 template <typename T, int D>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)(kRows + 4 * kKeys) * row_elems<T, D>() * sizeof(T) +
+  return (size_t)(kRows + 2 * stages<T, D>() * kKeys) * row_elems<T, D>() * sizeof(T) +
          (size_t)kRows * kPStride * sizeof(float);
 }
 
@@ -129,6 +142,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int DP = row_elems<T, D>();
   constexpr int kOutChunks = kChunks / kLanesPerRow;  // P V chunks per thread
   constexpr int kCols = kOutChunks * kVec;             // = D / 8 columns
+  constexpr int kStages = stages<T, D>();
   const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (h / hkv);
@@ -140,8 +154,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
   T* k_s = q_s + kRows * DP;
-  T* v_s = k_s + 2 * kKeys * DP;
-  float* p_s = reinterpret_cast<float*>(v_s + 2 * kKeys * DP);
+  T* v_s = k_s + kStages * kKeys * DP;
+  float* p_s = reinterpret_cast<float*>(v_s + kStages * kKeys * DP);
 
   // Keys any row of the tile keeps lie in [k_lo, k_hi).
   int k_lo = 0, k_hi = tk;
@@ -173,7 +187,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (t < t_hi) {
       const int k0 = t * kKeys;
       const int n = min(kKeys, tk - k0);
-      const int st = (t - t_lo) & 1;
+      const int st = (t - t_lo) % kStages;
       T* ks = k_s + st * kKeys * DP;
       T* vs = v_s + st * kKeys * DP;
       const int nvec = n * kChunks;
@@ -202,10 +216,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   fetch(t_lo);
   for (int t = t_lo; t < t_hi; ++t) {
-    fetch(t + 1);
-    cp_async_wait<1>();  // this thread's copies of tile t (and q) are done
-    __syncthreads();     // ...everyone's
-    const int st = (t - t_lo) & 1;
+    if (kStages == 2) {
+      fetch(t + 1);
+      cp_async_wait<1>();  // this thread's copies of tile t (and q) are done
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // ...everyone's
+    const int st = (t - t_lo) % kStages;
     const T* ks = k_s + st * kKeys * DP;
     const T* vs = v_s + st * kKeys * DP;
     const int k0 = t * kKeys;
@@ -289,6 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();  // stage st and p_s are free for the next tiles
+    if (kStages == 1) fetch(t + 1);
   }
   cp_async_wait<0>();  // no copy outlives the block
 
@@ -508,12 +527,14 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
                         q_offset, causal, window, scale, softcap, st)
   if (dtype == 0 && d == 64) FA_LAUNCH(float, 64);
   if (dtype == 0 && d == 128) FA_LAUNCH(float, 128);
+  if (dtype == 0 && d == 256) FA_LAUNCH(float, 256);
 #undef FA_LAUNCH
 #define FA_LAUNCH_TC(DIM)                                                           \
   return launch_tc<DIM>(q, k, v, out, b, tq, tk, h, hkv, q_bstride, kv_bstride, \
                         q_offset, causal, window, scale, softcap, st)
   if (dtype == 1 && d == 64) FA_LAUNCH_TC(64);
   if (dtype == 1 && d == 128) FA_LAUNCH_TC(128);
+  if (dtype == 1 && d == 256) FA_LAUNCH_TC(256);
 #undef FA_LAUNCH_TC
   return (int)cudaErrorInvalidValue;
 }
@@ -523,7 +544,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
 extern "C" long long flash_attention_smem_bytes(int dtype, int d) {
   if (dtype == 0 && d == 64) return (long long)smem_bytes<float, 64>();
   if (dtype == 0 && d == 128) return (long long)smem_bytes<float, 128>();
+  if (dtype == 0 && d == 256) return (long long)smem_bytes<float, 256>();
   if (dtype == 1 && d == 64) return (long long)tc_smem_bytes<64>();
   if (dtype == 1 && d == 128) return (long long)tc_smem_bytes<128>();
+  if (dtype == 1 && d == 256) return (long long)tc_smem_bytes<256>();
   return 0;
 }

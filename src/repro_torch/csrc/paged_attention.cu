@@ -27,7 +27,8 @@
 // bf16 (paged_tc_kernel, merge_kernel): one block of 4 warps per (KV head,
 // sequence, key split) on the tensor cores, through the warp tile that the
 // ragged and flash kernels share (attention_tile.cuh: mma.sync bf16, fp32
-// online softmax in registers, P rounded to bf16 before P V).  The tile's
+// online softmax in registers, P rounded to bf16 before P V; q's fragments
+// read from the shared q rows per 16-deep chunk at D = 256).  The tile's
 // 16 rows are the G query heads of the (sequence, KV head) -- G = 1 for
 // Llama-2-7B, 7 for Qwen2-0.5B; the rows past G are masked -- so each page
 // is read once for the whole group.  The sequence's table entries go to
@@ -57,10 +58,13 @@
 //
 // fp32 (decode_kernel): the CUDA cores, kept as it is to hold the port
 // against the reference at fp32: one block per (KV head, sequence) holds
-// that head's G query rows, pages stream through a ring of kStages
-// shared-memory stages with 16-byte cp.async copies issued kStages - 1
-// pages ahead, scores and probabilities live in shared memory and each
-// thread keeps up to 8 fp32 outputs.
+// that head's G query rows, pages stream through a ring of stages<D>()
+// shared-memory stages (4; 2 at D = 256, where 4 pages of 32 would take
+// 266,240 bytes) with 16-byte cp.async copies issued stages - 1 pages
+// ahead, scores and probabilities live in shared memory and each thread
+// keeps kOut fp32 outputs: 8, 16 or 32, the fewest that cover G * D over
+// the block's 128 threads (command-r-plus-104b: G * D = 12 * 128 = 1536,
+// so 16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,10 +76,9 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 4;                               // pages in the ring
 constexpr int kLanesPerKey = 8;                          // lanes of one dot product
 constexpr int kKeysPerPass = kThreads / kLanesPerKey;    // 16
-constexpr int kMaxOut = 8;                               // outputs per thread: G * D <= 1024
+constexpr int kMaxOut = 32;                              // outputs per thread: G * D <= 4096
 constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -117,11 +120,17 @@ __host__ __device__ constexpr int row_elems() {
   return D + 16 / (int)sizeof(T);
 }
 
-// Shared memory: the ring [kStages][K, V][page][row], then in floats
+// Pages in the ring.
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D > 128 ? 2 : 4;
+}
+
+// Shared memory: the ring [stages][K, V][page][row], then in floats
 // q [G][D], scores/probabilities [G][page], and per-row m, l, alpha.
 template <typename T, int D>
 __host__ __device__ constexpr size_t smem_bytes(int g, int page) {
-  return (size_t)kStages * 2 * page * row_elems<T, D>() * sizeof(T) +
+  return (size_t)stages<D>() * 2 * page * row_elems<T, D>() * sizeof(T) +
          (size_t)(g * D + g * page + 3 * g) * sizeof(float);
 }
 
@@ -130,7 +139,7 @@ __device__ __forceinline__ int kept_keys(int pi, int blk, int page, int seq_len)
   return blk < 0 ? 0 : min(page, seq_len - pi * page);
 }
 
-template <typename T, int D>
+template <typename T, int D, int kOut>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                   const T* __restrict__ v_pool, const int* __restrict__ tables,
@@ -140,6 +149,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kVec = 16 / (int)sizeof(T);       // elements per 16-byte copy
   constexpr int kVecsPerRow = D / kVec;
   constexpr int kDimsPerLane = D / kLanesPerKey;
+  constexpr int kStages = stages<D>();
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int g = h / hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -186,9 +196,9 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   };
 
-  float acc[kMaxOut];
+  float acc[kOut];
 #pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
 
   for (int s = 0; s < kStages - 1; ++s) issue(s);
   __syncthreads();  // q, m, l are set
@@ -252,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // acc = alpha * acc + P V, each thread owning outputs tid + i * kThreads
 #pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
+    for (int i = 0; i < kOut; ++i) {
       const int o = tid + i * kThreads;
       if (o < g * D) {
         const int r = o / D, d = o - r * D;
@@ -268,7 +278,7 @@ __global__ void __launch_bounds__(kThreads)
 
   T* ob = out + ((size_t)b * h + (size_t)kvh * g) * D;
 #pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) {
+  for (int i = 0; i < kOut; ++i) {
     const int o = tid + i * kThreads;
     if (o < g * D) {
       const float l = l_s[o / D];
@@ -277,24 +287,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const void* tables,
-           const void* lens, void* out, int b, int h, int hkv, int page, int m,
-           float scale, float softcap, cudaStream_t stream) {
-  const int g = h / hkv;
-  if (g * D > kMaxOut * kThreads) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T, D>(g, page);
+template <typename T, int D, int kOut>
+int launch_out(const void* q, const void* kp, const void* vp, const void* tables,
+               const void* lens, void* out, int b, int h, int hkv, int page, int m,
+               float scale, float softcap, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, D>(h / hkv, page);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_kernel<T, D, kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(hkv, b);
-  decode_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  decode_kernel<T, D, kOut><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
       static_cast<const int*>(tables), static_cast<const int*>(lens),
       static_cast<T*>(out), h, hkv, page, m, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+// The instantiation with the fewest outputs per thread that covers G * D.
+template <typename T, int D>
+int launch(const void* q, const void* kp, const void* vp, const void* tables,
+           const void* lens, void* out, int b, int h, int hkv, int page, int m,
+           float scale, float softcap, cudaStream_t stream) {
+  const int width = (h / hkv) * D;
+#define PA_OUT(N)                                                                       \
+  if (width <= (N) * kThreads)                                                          \
+    return launch_out<T, D, N>(q, kp, vp, tables, lens, out, b, h, hkv, page, m, scale, \
+                               softcap, stream)
+  PA_OUT(8);
+  PA_OUT(16);
+  PA_OUT(kMaxOut);
+#undef PA_OUT
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------ bf16 kernels
@@ -576,7 +601,8 @@ int launch_tc(const void* q, const void* kp, const void* vp, const void* tables,
 }  // namespace
 
 // dtype: 0 = float32 (decode_kernel), 1 = bfloat16 (paged_tc_kernel, then
-// merge_kernel when nsplit > 1).  q (b, h, d), pools (n, page, hkv, d),
+// merge_kernel when nsplit > 1); d = 64, 128 or 256, and at fp32
+// (h / hkv) * d <= 4096.  q (b, h, d), pools (n, page, hkv, d),
 // tables (b, m) int32, seq_lens (b,) int32, out (b, h, d); the pools (and
 // bf16 q) 16-byte aligned (the wrapper checks).  bf16 only: the keys are cut into
 // nsplit splits of split_keys (a multiple of 64) and, when nsplit > 1,
@@ -597,21 +623,28 @@ extern "C" int paged_attention(int dtype, const void* q, const void* k_pool,
                             page, m, scale, softcap, st)
   if (dtype == 0 && d == 64) PA_LAUNCH(64);
   if (dtype == 0 && d == 128) PA_LAUNCH(128);
+  if (dtype == 0 && d == 256) PA_LAUNCH(256);
 #undef PA_LAUNCH
 #define PA_LAUNCH_TC(DIM)                                                           \
   return launch_tc<DIM>(q, k_pool, v_pool, tables, seq_lens, out, part_o, part_ml, \
                         b, h, hkv, page, m, nsplit, split_keys, scale, softcap, st)
   if (dtype == 1 && d == 64) PA_LAUNCH_TC(64);
   if (dtype == 1 && d == 128) PA_LAUNCH_TC(128);
+  if (dtype == 1 && d == 256) PA_LAUNCH_TC(256);
 #undef PA_LAUNCH_TC
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one paged_tc_kernel block (dtype 1) for head
-// dim d, g query heads per KV head and a table width of m, in bytes (0 for
-// anything else).
-extern "C" long long paged_attention_smem_bytes(int dtype, int d, int g, int m) {
+// Dynamic shared memory of one block of the kernel that `dtype` and `d`
+// launch -- decode_kernel (dtype 0) or paged_tc_kernel (dtype 1) -- for g
+// query heads per KV head, `page` tokens per page and a table width of m,
+// in bytes (0 for an unsupported head dim or dtype).
+extern "C" long long paged_attention_smem_bytes(int dtype, int d, int g, int page, int m) {
+  if (dtype == 0 && d == 64) return (long long)smem_bytes<float, 64>(g, page);
+  if (dtype == 0 && d == 128) return (long long)smem_bytes<float, 128>(g, page);
+  if (dtype == 0 && d == 256) return (long long)smem_bytes<float, 256>(g, page);
   if (dtype == 1 && d == 64) return (long long)tc_smem_bytes<64>(q_groups(g), m);
   if (dtype == 1 && d == 128) return (long long)tc_smem_bytes<128>(q_groups(g), m);
+  if (dtype == 1 && d == 256) return (long long)tc_smem_bytes<256>(q_groups(g), m);
   return 0;
 }

@@ -32,7 +32,8 @@
 //
 // bf16 (ragged_tc_kernel): blocks of 4 warps over a tile of up to 64
 // grouped rows, one warp per 16 rows (attention_tile.cuh: mma.sync bf16,
-// fp32 online softmax in registers).  Where the rows need fewer warps --
+// fp32 online softmax in registers; at D = 256 q's fragments are read from
+// the shared q rows per 16-deep chunk).  Where the rows need fewer warps --
 // a Llama-2-7B decode step (Qmax = 1, G = 1) has one row per block -- the
 // warps that share rows split each round's 16-key chunks 2 or 4 ways and
 // merge their (m, l, O) in shared memory at the end: a block of one warp
@@ -431,7 +432,10 @@ int launch_tc(const void* q, const void* kp, const void* vp, const void* tables,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16; d = 64, 128 or 256.  The block's
+// shared memory (ragged_paged_attention_smem_bytes) must fit the 232,448
+// bytes a block may opt into: the wrapper refuses a page or table width
+// above that.  Returns cudaGetLastError() after the
 // launch (0 on success), or cudaErrorInvalidValue for an unsupported head
 // dim or dtype.  Launches on `stream`, allocates nothing, never synchronises.
 extern "C" int ragged_paged_attention(int dtype, const void* q, const void* k_pool,
@@ -446,12 +450,14 @@ extern "C" int ragged_paged_attention(int dtype, const void* q, const void* k_po
                         hkv, page, m, scale, softcap, st)
   if (dtype == 0 && d == 64) RPA_LAUNCH(float, 64);
   if (dtype == 0 && d == 128) RPA_LAUNCH(float, 128);
+  if (dtype == 0 && d == 256) RPA_LAUNCH(float, 256);
 #undef RPA_LAUNCH
 #define RPA_LAUNCH_TC(DIM)                                                             \
   return launch_tc<DIM>(q, k_pool, v_pool, tables, q_pos, kv_lens, out, s, qmax, h, \
                         hkv, page, m, scale, softcap, st)
   if (dtype == 1 && d == 64) RPA_LAUNCH_TC(64);
   if (dtype == 1 && d == 128) RPA_LAUNCH_TC(128);
+  if (dtype == 1 && d == 256) RPA_LAUNCH_TC(256);
 #undef RPA_LAUNCH_TC
   return (int)cudaErrorInvalidValue;
 }
@@ -463,7 +469,9 @@ extern "C" long long ragged_paged_attention_smem_bytes(int dtype, int d, int row
                                                        int m) {
   if (dtype == 0 && d == 64) return (long long)(smem_floats<64>(page) * sizeof(float));
   if (dtype == 0 && d == 128) return (long long)(smem_floats<128>(page) * sizeof(float));
+  if (dtype == 0 && d == 256) return (long long)(smem_floats<256>(page) * sizeof(float));
   if (dtype == 1 && d == 64) return (long long)tc_smem_bytes<64>(q_groups(rows), m);
   if (dtype == 1 && d == 128) return (long long)tc_smem_bytes<128>(q_groups(rows), m);
+  if (dtype == 1 && d == 256) return (long long)tc_smem_bytes<256>(q_groups(rows), m);
   return 0;
 }

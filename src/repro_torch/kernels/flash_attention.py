@@ -20,7 +20,7 @@ from . import build
 from .ref import flash_attention_ref  # noqa: F401
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def _lib():

@@ -32,7 +32,34 @@ from ..kvcache.cache_ops import (  # noqa: F401
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
+# Shared memory one block may opt into on the H100 (227 KB).
+SMEM_LIMIT = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def _table_limit(name: str, dtype: int, d: int, rows: int, page: int) -> int:
+    """The widest table (entries per sequence) whose block of kernel
+    ``name`` fits ``SMEM_LIMIT``, from the source's own
+    ``<name>_smem_bytes(dtype, d, rows, page, m)``: -1 when no width fits
+    (the page alone is too large)."""
+    fn = getattr(build.load(name), f"{name}_smem_bytes")
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    base = fn(dtype, d, rows, page, 0)
+    per_entry = fn(dtype, d, rows, page, 1) - base
+    if base > SMEM_LIMIT:
+        return -1
+    return (SMEM_LIMIT - base) // per_entry if per_entry else 1 << 30
+
+
+def _check_smem(name: str, dtype: int, d: int, rows: int, page: int, m: int) -> None:
+    """Refuse a page or table width whose block of kernel ``name`` would
+    not fit."""
+    limit = _table_limit(name, dtype, d, rows, page)
+    if m > limit:
+        raise ValueError(f"{name}: at head dim {d}, {rows} rows and page {page} a block "
+                         f"takes a table of at most {max(limit, 0)} entries, got {m}")
 
 
 def _lib():
@@ -86,6 +113,8 @@ def ragged_paged_attention(
         raise ValueError("ragged_paged_attention: q and the pools must be 16-byte aligned")
     if s > 65535 or hkv > 65535:
         raise ValueError("ragged_paged_attention: too many sequences or KV heads for the grid")
+    m = block_tables.shape[1]
+    _check_smem("ragged_paged_attention", _DTYPES[q.dtype], d, qmax * (h // hkv), page, m)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -94,7 +123,7 @@ def ragged_paged_attention(
         rc = _lib()(
             _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), q_positions.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), s, qmax, h, hkv, d, page, block_tables.shape[1],
+            out.data_ptr(), s, qmax, h, hkv, d, page, m,
             float(d) ** -0.5, float(logit_softcap),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -108,15 +137,13 @@ ragged_paged_attention.launches = 0
 
 
 # fp32 (decode_kernel) keeps G * D fp32 accumulators in registers across
-# its 128 threads (8 each), and a ring of 4 pages in shared memory; a larger
-# G * D or page is refused.
-MAX_GROUP_WIDTH = 1024
-MAX_PAGE = 32
+# its 128 threads (at most 32 each), and a ring of pages in shared memory; a
+# larger G * D, or a page whose ring does not fit, is refused.
+MAX_GROUP_WIDTH = 4096
 # bf16 (paged_tc_kernel) holds the G query heads of a KV head in its 4
 # warps of 16 rows and the table row in shared memory, and takes any page
-# size; a larger G or table is refused.
+# size; a larger G, or a table whose row does not fit, is refused.
 MAX_TC_GROUP = 64
-MAX_TC_TABLE_WIDTH = 32768
 # Split-KV of the bf16 kernel: splits are whole rounds of 64 keys, at least
 # MIN_SPLIT_KEYS each (a shorter split saves less than its set-up and merge
 # cost), enough of them for SPLIT_BLOCKS_PER_SM blocks per SM.
@@ -194,18 +221,17 @@ def paged_attention(
     if d not in HEAD_DIMS:
         raise ValueError(f"paged_attention: head dim {d} not in {HEAD_DIMS}")
     g, m = h // hkv, block_tables.shape[1]
-    if q.dtype == torch.bfloat16 and (g > MAX_TC_GROUP or m > MAX_TC_TABLE_WIDTH):
-        raise ValueError(f"paged_attention: bf16 group {g} > {MAX_TC_GROUP} or table width "
-                         f"{m} > {MAX_TC_TABLE_WIDTH}")
-    if q.dtype == torch.float32 and (g * d > MAX_GROUP_WIDTH or page > MAX_PAGE):
-        raise ValueError(f"paged_attention: fp32 group width {g * d} > "
-                         f"{MAX_GROUP_WIDTH} or page {page} > {MAX_PAGE}")
+    if q.dtype == torch.bfloat16 and g > MAX_TC_GROUP:
+        raise ValueError(f"paged_attention: bf16 group {g} > {MAX_TC_GROUP}")
+    if q.dtype == torch.float32 and g * d > MAX_GROUP_WIDTH:
+        raise ValueError(f"paged_attention: fp32 group width {g * d} > {MAX_GROUP_WIDTH}")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_attention: pools must be 16-byte aligned")
     if q.dtype == torch.bfloat16 and q.data_ptr() % 16:
         raise ValueError("paged_attention: bf16 q must be 16-byte aligned")
     if b > 65535 or hkv > 65535:
         raise ValueError("paged_attention: too many sequences or KV heads for the grid")
+    _check_smem("paged_attention", _DTYPES[q.dtype], d, g, page, m)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -19,10 +19,13 @@ The paged entry points take a tensor-parallel serving ``mesh`` (DESIGN.md
 (``init_paged_pools(mesh=...)``) and every paged layer runs its KV writes and
 attention per shard (``layers``).
 
-Only architectures whose every layer is plain causal full attention with a
-dense MLP run here; the other families (SSM, MoE, cross-attention, sliding
-windows, encoders, VLMs) are ROADMAP Queue 1's item on the contiguous
-fallback's other archs.
+Architectures whose every layer is plain causal full attention run here,
+with a dense MLP or a Mixture-of-Experts FFN (``models/moe.py``: dropless
+on every serving entry point, capacity factor 1.25 by default on
+``forward_full`` and ``run_segment``, as in the reference).  The other
+families (sliding windows, SSM, cross-attention and VLMs, encoders) raise
+``NotImplementedError`` naming their sub-item of ROADMAP Queue 1 item 3,
+the contiguous fallback's other archs.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..distributed import sharding
-from .config import FFN_DENSE, MIXER_ATTN, ModelConfig
+from . import moe
+from .config import FFN_MOE, MIXER_ATTN, ModelConfig
 from .layers import (
     KVCache,
     RaggedMeta,
@@ -65,14 +69,22 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if not supports_paged(cfg) or any(
-        s.ffn != FFN_DENSE for s in cfg.layer_pattern()
-    ) or not cfg.embed_inputs or cfg.vision_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs only dense causal full-attention "
-            "stacks, paged or contiguous (SSM, MoE, cross-attention, sliding "
-            f"windows, encoders and VLMs: {ARCHS_ITEM})"
-        )
+    """Raise ``NotImplementedError`` for a family the port does not run yet,
+    naming its ROADMAP item."""
+    if cfg.has_ssm_state:
+        what, item = "SSM and hybrid layers (mamba2, jamba)", "3.4"
+    elif cfg.cross_attn_period or cfg.vision_dim:
+        what, item = "cross-attention and image embeds (llama-3.2-vision)", "3.5"
+    elif not cfg.causal or not cfg.embed_inputs:
+        what, item = "the encoder branch (hubert)", "3.6"
+    elif cfg.sliding_window:
+        what, item = "ring caches for sliding windows (mixtral)", "3.3"
+    elif not supports_paged(cfg):
+        what, item = "layers other than causal full attention", "3"
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: {what} are not ported yet ({ARCHS_ITEM}, item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +120,7 @@ def init_params(
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), d**-0.5)
     layers = {}
-    for i, _spec in enumerate(cfg.layer_pattern()):
+    for i, spec in enumerate(cfg.layer_pattern()):
         mixer = {
             "wq": normal((P, d, h, hd), d**-0.5),
             "wk": normal((P, d, hkv, hd), d**-0.5),
@@ -121,7 +133,9 @@ def init_params(
         if cfg.o_bias:
             mixer["bo"] = zeros((P, d))
         layer = {"norm1": ones((P, d)), "norm2": ones((P, d)), "mixer": mixer}
-        if ff:
+        if spec.ffn == FFN_MOE:
+            layer["ffn"] = moe.init_moe(cfg, generator, dtype, P)
+        elif ff:
             ffn = {
                 "w_up": normal((P, d, ff), d**-0.5),
                 "w_down": normal((P, ff, d), ff**-0.5),
@@ -296,6 +310,8 @@ def run_periods(
     valid: Optional[torch.Tensor] = None,  # (B, L) padding mask (contiguous)
     q_offsets: Optional[Sequence[int]] = None,  # host chunk offsets (contiguous)
     mesh=None,  # tensor-parallel serving mesh (paged only)
+    capacity_factor: float = 1.25,  # MoE layers; <= 0: dropless
+    aux_out: Optional[List[torch.Tensor]] = None,  # MoE layers' aux losses, appended
 ) -> torch.Tensor:
     """Periods [lo, lo + num) of the stack; returns x.
 
@@ -304,7 +320,8 @@ def run_periods(
     chunk or one-token decode.  Contiguous (``block_tables`` None):
     ``full`` runs the whole sequence with no prior context and, when
     ``caches`` is given, emits them (writes the roped K/V); ``prefill`` and
-    ``decode`` attend through the caches (``cached_attention``)."""
+    ``decode`` attend through the caches (``cached_attention``).  A MoE
+    layer routes every row, padded ones too, with ``capacity_factor``."""
     paged = block_tables is not None
     if paged and ((mode == "ragged") != (meta is not None) or mode not in PAGED_MODES):
         raise ValueError(f"paged mode {mode!r} with meta={meta is not None}")
@@ -313,7 +330,7 @@ def run_periods(
         raise ValueError(f"contiguous mode {mode!r} with caches={caches is not None}")
     pattern = cfg.layer_pattern()
     for per in range(lo, lo + num):
-        for i, _spec in enumerate(pattern):
+        for i, spec in enumerate(pattern):
             lp = _period(layer_params[str(i)], per)
             cache = _period(caches[str(i)], per) if caches is not None else None
             h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
@@ -335,7 +352,15 @@ def run_periods(
                                           valid, q_offsets)
             x = x + mix
             if "ffn" in lp:
-                x = x + mlp(cfg, lp["ffn"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
+                h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+                if spec.ffn == FFN_MOE:
+                    h, aux = moe.moe_ffn(cfg, lp["ffn"], h, capacity_factor,
+                                         aux=aux_out is not None)
+                    if aux_out is not None:
+                        aux_out.append(aux)
+                else:
+                    h = mlp(cfg, lp["ffn"], h)
+                x = x + h
     return x
 
 
@@ -356,7 +381,7 @@ def run_tokens_paged(
     x = embed(cfg, params, tokens[None])
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
                     constrain_paged_pools(pools, mesh), block_tables, positions[None],
-                    meta, mesh=mesh)
+                    meta, mesh=mesh, capacity_factor=-1.0)
     return ragged_lm_head(cfg, params, x, logit_index), pools
 
 
@@ -378,7 +403,7 @@ def run_tokens_paged_at(
     has run the same segments at an abort, §11)."""
     x = run_periods(cfg, params["layers"], lo, seg_periods, x,
                     constrain_paged_pools(pools, mesh), block_tables, positions, meta,
-                    mesh=mesh)
+                    mesh=mesh, capacity_factor=-1.0)
     return x, pools
 
 
@@ -409,7 +434,7 @@ def prefill_chunk_paged(
                                                 device=offsets.device)[None, :]
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
                     constrain_paged_pools(pools, mesh), block_tables, positions,
-                    mode="prefill", mesh=mesh)
+                    mode="prefill", mesh=mesh, capacity_factor=-1.0)
     if last_index is None:
         xl = x[:, -1:, :]
     else:
@@ -432,7 +457,7 @@ def decode_step_paged(
     x = embed(cfg, params, last_tokens[:, None])
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
                     constrain_paged_pools(pools, mesh), block_tables, seq_lens[:, None],
-                    mode="decode", mesh=mesh)
+                    mode="decode", mesh=mesh, capacity_factor=-1.0)
     return lm_head(cfg, params, x)[:, 0, :], pools
 
 
@@ -452,7 +477,7 @@ def run_segment_paged_at(
     not-yet-committed position and are rewritten verbatim on re-execution."""
     x = run_periods(cfg, params["layers"], lo, seg_periods, x,
                     constrain_paged_pools(pools, mesh), block_tables, positions,
-                    mode="decode", mesh=mesh)
+                    mode="decode", mesh=mesh, capacity_factor=-1.0)
     return x, pools
 
 
@@ -485,13 +510,14 @@ def forward_full(
     *,
     emit_caches: bool = False,
     max_seq: Optional[int] = None,
+    capacity_factor: float = 1.25,
     cache_dtype=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, PyTree]], torch.Tensor]:
     """Whole-sequence forward.  Returns ((B, T, V) fp32 logits, caches of
     capacity ``max_seq or T`` holding the sequence when ``emit_caches``,
-    else None, and the auxiliary loss, 0 for the dense stacks the port
-    runs).  Every layer's attention is the flash attention over the whole
-    sequence (the kernel on CUDA)."""
+    else None, and the auxiliary loss: the MoE layers' router losses summed,
+    0 for a dense stack).  Every layer's attention is the flash attention
+    over the whole sequence (the kernel on CUDA)."""
     _check_supported(cfg)
     x = embed(cfg, params, inputs)
     b, t = inputs.shape
@@ -500,9 +526,13 @@ def forward_full(
         init_caches(cfg, b, max_seq or t, cache_dtype or x.dtype, x.device)
         if emit_caches else None
     )
+    auxes: List[torch.Tensor] = []
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
-                    positions, mode="full")
+                    positions, mode="full", capacity_factor=capacity_factor,
+                    aux_out=auxes)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:
+        aux = aux + a
     return lm_head(cfg, params, x), caches, aux
 
 
@@ -537,7 +567,8 @@ def prefill_chunk(
     if lengths is not None:
         valid = torch.arange(l, device=x.device)[None, :] < lengths[:, None]
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
-                    positions, mode="prefill", valid=valid, q_offsets=offsets)
+                    positions, mode="prefill", valid=valid, q_offsets=offsets,
+                    capacity_factor=-1.0)
     if lengths is None:
         xl = x[:, -1:, :]
     else:
@@ -559,7 +590,7 @@ def decode_step(
     _check_supported(cfg)
     x = embed(cfg, params, last_tokens[:, None])
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
-                    seq_lens[:, None], mode="decode")
+                    seq_lens[:, None], mode="decode", capacity_factor=-1.0)
     return lm_head(cfg, params, x)[:, 0, :], caches
 
 
@@ -596,15 +627,18 @@ def run_segment(
     positions: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     q_offsets: Optional[Sequence[int]] = None,
+    capacity_factor: float = 1.25,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, PyTree]]]:
     """One preemptible segment (periods [lo, hi)) on contiguous caches.
     The caches are updated in place; the engine runs it on a stacked copy
-    of its per-request caches, so an aborted decode leaves them untouched."""
+    of its per-request caches, so an aborted decode leaves them untouched.
+    MoE layers route at ``capacity_factor``, 1.25 as in the reference,
+    whose engine calls it so on its segmented contiguous decode."""
     lo, hi = segment_bounds(cfg, seg)
     lp = slice_periods(params["layers"], lo, hi)
     cs = slice_periods(caches, lo, hi) if caches is not None else None
     x = run_periods(cfg, lp, 0, hi - lo, x, cs, None, positions, mode=mode,
-                    valid=valid, q_offsets=q_offsets)
+                    valid=valid, q_offsets=q_offsets, capacity_factor=capacity_factor)
     if caches is not None:
         merge_periods(caches, cs, lo, hi)
     return x, caches

@@ -8,8 +8,8 @@ per-family dispatches (``fused_batch=False``, the fused path's differential
 oracle), on one device or over a tensor-parallel serving mesh (``mesh``),
 and the contiguous per-request caches (``backend="contiguous"``); serial,
 or on the fused paged path pipelined (``pipeline=True``).  Any architecture
-but a dense causal full-attention stack raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+but a causal full-attention stack (dense or Mixture-of-Experts FFN) raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 
 * Physical KV layout: shared pools ``(num_periods, num_device_blocks + 1,
   block_size, Hkv, D)`` per pattern position, updated in place; the last
@@ -233,10 +233,10 @@ class RealEngine:
             raise ValueError(f"unknown backend {eng_cfg.backend!r}")
         if eng_cfg.backend == "paged" and not tf.supports_paged(cfg):
             raise ValueError(f"{cfg.name}: arch cannot run the paged backend")
-        # every arch the port runs is a dense causal full-attention stack,
-        # which runs paged or contiguous; the others fall back to the
-        # contiguous layout in the reference and raise here (ROADMAP Queue 1,
-        # the contiguous fallback's other archs)
+        # every arch the port runs is a causal full-attention stack (dense or
+        # MoE FFN), which runs paged or contiguous; the others fall back to
+        # the contiguous layout in the reference and raise here, naming
+        # their item of ROADMAP Queue 1, the contiguous fallback's other archs
         tf._check_supported(cfg)
         self.paged = eng_cfg.backend != "contiguous"
         self.pipeline = bool(eng_cfg.pipeline)

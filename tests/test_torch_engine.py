@@ -42,6 +42,36 @@ def _weights(arch):
     return cfg, params, jax.tree.map(np.asarray, params)
 
 
+@pytest.fixture
+def reference_checkpoints_written_blocks(monkeypatch):
+    """The reference with a checkpoint fault that the port repairs (ROADMAP
+    Queue 3, settled) repaired in this process only (no file of the
+    reference changes): ``BlockManager.checkpoint_candidates`` counts a
+    sequence's complete blocks from ``num_tokens``, which includes the slot
+    the next decode writes, so a block is checkpointed one slot early and
+    restored stale.  Here it counts, as the port's ``Checkpointer.plan``
+    does, only the tokens whose KV is written."""
+    from repro.core.checkpoint import Checkpointer
+    from repro.kvcache.block_manager import BlockManager
+
+    plan, candidates = Checkpointer.plan, BlockManager.checkpoint_candidates
+
+    def written_plan(self, *args, **kw):
+        self.blocks.written = {
+            sid: r.kv_target if r.prefill_remaining == 0 else r.num_prefilled
+            for sid, r in self._candidates.items()}
+        return plan(self, *args, **kw)
+
+    def written_candidates(self, seq_id):
+        sb = self._seqs[seq_id]
+        keep = min(sb.num_tokens, self.written.get(seq_id, sb.num_tokens)) // self.block_size
+        return [c for c in candidates(self, seq_id) if c[0] < keep]
+
+    monkeypatch.setattr(Checkpointer, "plan", written_plan)
+    monkeypatch.setattr(BlockManager, "checkpoint_candidates", written_candidates)
+    monkeypatch.setattr(BlockManager, "written", {}, raising=False)
+
+
 def _prompt(vocab, plen, seed):
     return np.random.default_rng(seed).integers(0, vocab, plen).astype(np.int32)
 

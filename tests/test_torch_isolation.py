@@ -20,6 +20,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.serving.loadgen\n"
         "import repro_torch.bridge, repro_torch.kernels.ops\n"
         "import repro_torch.launch.mesh, repro_torch.distributed.sharding\n"
+        "import repro_torch.models.moe, repro_torch.configs\n"
+        "repro_torch.configs.all_configs()\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "(m.split('.')[0] in ('jax', 'jaxlib', 'repro'))]\n"
         "assert not bad, bad\n"

@@ -469,6 +469,21 @@ def test_tensor_core_rounding_stays_inside_bf16_tol_flash(case, softcap):
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
 
 
+@pytest.mark.parametrize("case", CHIP_SMOKE.FLASH_CASES, ids=lambda c: c[0])
+def test_tensor_core_rounding_stays_inside_bf16_tol_flash_d256(case):
+    """As above at gemma-7b's head dim of 256 (fewer heads), where the
+    scores' scale is 1/16 and each row's P V sums 256 columns."""
+    _, b, tq, tk, causal, window, q_offset = case
+    h, hkv, d = 2, 2, 256
+    q, k, v = _bf16((b, tq, h, d), 73), _bf16((b, tk, hkv, d), 74), _bf16((b, tk, hkv, d), 75)
+    keep = CHIP_SMOKE.flash_keep(torch, tq, tk, causal, window, q_offset)
+    got = _tensor_core_attention(q, k, v, keep.expand(b, tq, tk))
+    want = flash_attention_ref(q, k, v, causal=causal, sliding_window=window,
+                               q_offset=q_offset)
+    print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
 def _attention_case_cpu(h, hkv, d, seed, q_lens=(32, 1, 9, 1, 1, 0),
                         kv_lens=(32 + 131, 50, 9, 300, 1, 0), qmax=32, page=16):
     """chip_smoke.attention_case's ragged batch, built on the CPU from
@@ -490,12 +505,14 @@ def _attention_case_cpu(h, hkv, d, seed, q_lens=(32, 1, 9, 1, 1, 0),
 
 
 @pytest.mark.parametrize("case", sorted(CHIP_SMOKE.RAGGED_CASES))
-@pytest.mark.parametrize("shape", [(4, 4, 128), (14, 2, 64)], ids=["G1", "G7"])
+@pytest.mark.parametrize("shape", [(4, 4, 128), (14, 2, 64), (2, 2, 256)],
+                         ids=["G1", "G7", "D256"])
 def test_tensor_core_rounding_stays_inside_bf16_tol_ragged(case, shape):
     """The ragged kernel's bf16 arithmetic against its plain version on
     chip_smoke.py's phase-2 ragged batches (rounds of 64 keys over the
     sequence's gathered pages), at the Llama-2-7B (G = 1, D = 128, fewer
-    heads) and Qwen2-0.5B (G = 7, D = 64) groupings."""
+    heads), Qwen2-0.5B (G = 7, D = 64) and gemma-7b (G = 1, D = 256, fewer
+    heads) groupings."""
     h, hkv, d = shape
     q, kp, vp, tables, q_pos, kv_lens = _attention_case_cpu(
         h, hkv, d, 80, **CHIP_SMOKE.RAGGED_CASES[case])
@@ -563,14 +580,16 @@ H100_SMS = 132
 
 
 @pytest.mark.parametrize("case", sorted(CHIP_SMOKE.DECODE_CASES))
-@pytest.mark.parametrize("shape", [(2, 2, 128), (14, 2, 64)], ids=["G1", "G7"])
+@pytest.mark.parametrize("shape", [(2, 2, 128), (14, 2, 64), (2, 2, 256)],
+                         ids=["G1", "G7", "D256"])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_tensor_core_rounding_stays_inside_bf16_tol_decode(case, shape, softcap):
     """The bf16 decode kernel's arithmetic, split by the host's choice for
     these shapes, against its plain version on chip_smoke.py's phase-2
-    decode batches, at the Llama-2-7B (G = 1, D = 128, fewer heads) and
-    Qwen2-0.5B (G = 7, D = 64) groupings: inside the bf16 tolerance the card
-    holds it to, and seq_len = 0 rows exactly 0."""
+    decode batches, at the Llama-2-7B (G = 1, D = 128, fewer heads),
+    Qwen2-0.5B (G = 7, D = 64) and gemma-7b (G = 1, D = 256, fewer heads)
+    groupings: inside the bf16 tolerance the card holds it to, and
+    seq_len = 0 rows exactly 0."""
     h, hkv, d = shape
     q, kp, vp, tables, lens = _decode_case_cpu(h, hkv, d, 90, **CHIP_SMOKE.DECODE_CASES[case])
     splits, keys = paged_attention.decode_splits(q.shape[0], hkv, tables.shape[1] * kp.shape[1],
@@ -636,3 +655,45 @@ def test_decode_cases_split_at_both_shapes():
     assert (splits(32, **long), splits(2, **long)) == (3, 4)
     assert splits(32, **CHIP_SMOKE.DECODE_CASES["page 24"]) == 3
     assert splits(2, seq_lens=(163, 50, 16, 300, 1, 0, 64, 33)) == 1
+
+
+def test_decode_cases_split_at_the_new_shapes():
+    """Phase 2's long contexts split at gemma-7b's 16 KV heads (D = 256) and
+    at yi-34b's and command-r-plus-104b's 8, as at the Llama shape."""
+    long = CHIP_SMOKE.DECODE_CASES["long contexts"]
+    m = max(-(-n // 16) for n in long["seq_lens"]) + 2
+    for arch in ("gemma-7b", "yi-34b", "command-r-plus-104b"):
+        _h, hkv, _d = CHIP_SMOKE.ATTN_SHAPES[arch]
+        n, _keys = paged_attention.decode_splits(len(long["seq_lens"]), hkv, m * 16, H100_SMS)
+        assert n == 4, (arch, n)
+
+
+def test_table_width_limit_follows_the_sources_smem_export(monkeypatch):
+    """The wrappers' page and table-width limits come from each source's
+    ``<name>_smem_bytes`` export (emulated here by the bf16 ragged kernel's
+    and the fp32 decode kernel's formulas at D = 256): the widest table
+    whose block fits 232,448 bytes, none where the page alone does not fit,
+    no limit where the block does not hold the table."""
+    import types
+
+    def ragged_bytes(dtype, d, rows, page, m):  # tc_smem_bytes<256>, 4 row groups
+        return (4 * 64 + 16 * 4) * (d + 8) * 2 + (m + 4) * 4
+
+    def decode_bytes(dtype, d, g, page, m):  # smem_bytes<float, 256>: 2 stages
+        return 2 * 2 * page * (d + 4) * 4 + (g * d + g * page + 3 * g) * 4
+
+    lib = types.SimpleNamespace(ragged_paged_attention_smem_bytes=ragged_bytes,
+                                paged_attention_smem_bytes=decode_bytes)
+    monkeypatch.setattr(paged_attention.build, "load", lambda name: lib)
+    paged_attention._table_limit.cache_clear()
+    try:
+        assert paged_attention._table_limit("ragged_paged_attention", 1, 256, 64, 16) == (
+            (232448 - ragged_bytes(1, 256, 64, 16, 0)) // 4) == 15868
+        paged_attention._check_smem("ragged_paged_attention", 1, 256, 64, 16, 15868)
+        with pytest.raises(ValueError, match="at most 15868 entries"):
+            paged_attention._check_smem("ragged_paged_attention", 1, 256, 64, 16, 15869)
+        paged_attention._check_smem("paged_attention", 0, 256, 16, 32, 10**6)
+        with pytest.raises(ValueError, match="at most 0 entries"):
+            paged_attention._check_smem("paged_attention", 0, 256, 16, 64, 1)
+    finally:
+        paged_attention._table_limit.cache_clear()

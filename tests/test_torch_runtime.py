@@ -45,7 +45,9 @@ from repro_torch.serving.loadgen import (  # noqa: E402
 )
 from repro_torch.serving.real_engine import RealEngine, RealEngineConfig  # noqa: E402
 from repro_torch.serving.runtime import CoServingRuntime, ManualClock  # noqa: E402
-from test_torch_engine import MARGIN_BOUND, _prompt, _weights  # noqa: E402
+from test_torch_engine import (  # noqa: E402,F401
+    MARGIN_BOUND, _prompt, _weights, reference_checkpoints_written_blocks,
+)
 
 CFG = get_config("llama-2-7b").reduced()
 PARAMS = bridge.to_torch(_weights("llama-2-7b")[2])
@@ -274,15 +276,18 @@ def test_threaded_runtime_serves_frontend():
 # pure-offline decode (a safepoint abort) and force a preemption
 DIFF_JOBS = [(40, 16)] * 3
 DIFF_ONLINE = [(0.03, 30, 6), (0.07, 20, 4)]
+# the same trace with its arrivals 15 ms later: there the reference's
+# pipelined runtime aborts a pure-offline batch at a safepoint
+DIFF_ONLINE_PIPELINED_ABORT = [(0.045, 30, 6), (0.085, 20, 4)]
 
 
-def _diff_trace(make):
+def _diff_trace(make, online=DIFF_ONLINE):
     reqs = [make(False, p, g, 0.0, s) for s, (p, g) in enumerate(DIFF_JOBS)]
-    reqs += [make(True, p, g, t, 100 + s) for s, (t, p, g) in enumerate(DIFF_ONLINE)]
+    reqs += [make(True, p, g, t, 100 + s) for s, (t, p, g) in enumerate(online)]
     return reqs
 
 
-def _diff_reference(eng_kw):
+def _diff_reference(eng_kw, online=DIFF_ONLINE):
     cfg, params, _ = _weights("llama-2-7b")
     eng = RealEngineRef(cfg, params, eng_cfg=RealEngineConfigRef(**eng_kw),
                         slo=SLORef(ttft=0.0, tpot=10.0))
@@ -293,11 +298,11 @@ def _diff_reference(eng_kw):
                           prompt=_prompt(cfg.vocab_size, plen, seed))
 
     rt = CoServingRuntimeRef(eng, clock=ManualClockRef(auto_tick=1e-3))
-    reqs = _diff_trace(make)
+    reqs = _diff_trace(make, online)
     return reqs, rt, rt.replay(reqs)
 
 
-def _diff_port(eng_kw):
+def _diff_port(eng_kw, online=DIFF_ONLINE):
     eng = RealEngine(CFG, PARAMS, eng_cfg=RealEngineConfig(**eng_kw),
                      slo=SLO(ttft=0.0, tpot=10.0), device="cpu")
     # the reference's prior latency model, so both schedulers plan alike
@@ -310,7 +315,7 @@ def _diff_port(eng_kw):
                        prompt=_prompt(CFG.vocab_size, plen, seed))
 
     rt = CoServingRuntime(eng, clock=ManualClock(auto_tick=1e-3))
-    reqs = _diff_trace(make)
+    reqs = _diff_trace(make, online)
     return reqs, rt, rt.replay(reqs)
 
 
@@ -345,3 +350,29 @@ def test_runtime_matches_reference_runtime(leg):
     # batches discarded by the same arrivals
     assert eng.pipeline_discards == ref_rt.engine.pipeline_discards
     assert (eng.pipeline_discards > 0) == (leg == "pipelined")
+
+
+def test_pipelined_runtime_aborts_at_a_safepoint_as_the_reference_does(
+        reference_checkpoints_written_blocks):
+    """An Algorithm 2 abort of a staged batch against the reference's
+    pipelined engine: on this trace the reference's pipelined runtime
+    aborts a pure-offline batch at a safepoint.  The port's emits the same
+    tokens, the same safepoint aborts, preemptions and discarded staged
+    batches, and finishes every request.  A request is preempted here with
+    its context at a block boundary, so the reference runs with its
+    checkpoint fault repaired in this process (the fixture), as the port
+    runs; unrepaired, its restored block holds one stale slot."""
+    eng_kw = dict(max_model_len=128, num_device_blocks=14, pipeline=True)
+    ref, ref_rt, ref_m = _diff_reference(eng_kw, DIFF_ONLINE_PIPELINED_ABORT)
+    got, rt, m = _diff_port(eng_kw, DIFF_ONLINE_PIPELINED_ABORT)
+    eng = rt.engine
+    low = min(min(v) for v in eng.margins.values())
+    assert low > MARGIN_BOUND, f"near-tie: a top-2 logit margin of {low:.2e}"
+    assert ref_rt.stats.safepoint_aborts >= 1, "the reference must abort on this trace"
+    assert rt.stats.safepoint_aborts == ref_rt.stats.safepoint_aborts
+    assert [r.output_tokens for r in got] == [r.output_tokens for r in ref]
+    npre = sum(r.num_preemptions for r in ref)
+    assert sum(r.num_preemptions for r in got) == npre >= 1
+    assert eng.pipeline_discards == ref_rt.engine.pipeline_discards > 0
+    assert m.num_finished == ref_m.num_finished == len(got)
+    assert not rt.stats.steps_exhausted and not ref_rt.stats.steps_exhausted
