@@ -130,6 +130,29 @@ any failure exits non-zero before the result lines:
    kernel's plain version (FULL_TOL); (d) the kernel line's
    ``head_dim_256`` entries: each kernel at gemma's heaviest call of its
    path and the attention kernels at 2-4 thousand-token contexts.
+11. The archs that resume a preempted request by recompute, on the
+   contiguous path (their only one; the checkpointer off), each serve
+   counted (zeroed just before, read just after: the flash kernel once per
+   attention layer of every prefill dispatch, no other kernel) and its
+   dispatches reading nothing back: (a) mamba2-1.3b (pure SSM) at full
+   width and depth, bf16, phase 3's workload, the tokens recomputed at each
+   resume, its decode step profiled with the top operators; (b) its fp32
+   legs at MAMBA_FP32_LAYERS layers, preempted against uninterrupted and
+   the safepoint-segmented decode against the plain one
+   (``--no-safepoints``), up to the first near-tie;
+   (c) mixtral-8x22b at full width and MIXTRAL_LAYERS layers, bf16, with
+   prompts of 4608 tokens prefilled in chunks of 512 into rings of 4096
+   slots (chunks that cross the window; a preemption whose recompute
+   crosses it again), then at fp32 and MIXTRAL_FP32_LAYERS layers its
+   legs (a MoE arch's compared on the plain, dropless decode) and the ring
+   prefill's last logits against ``forward_full``'s (FULL_TOL); (d) the
+   kernel line's flash entry gains ``sliding_window_4096``: the launches of
+   these paths and the kernel at ``forward_full``'s 8192 tokens with the
+   window and at the serve's heaviest ring chunk, each against its plain
+   version, with bound (kept pairs) and SDPA time; (e) jamba-1.5-large-398b
+   at ``.reduced()`` (one period of its full width does not fit the card;
+   the parameter counts behind each depth cut are logged), served at bf16,
+   and its fp32 legs.
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -416,6 +439,8 @@ FLASH_CASES = [
     ("Tq/Tk off the tile size", 1, 130, 300, True, 0, 170),
     ("Tq = 1", 2, 1, 300, True, 0, 299),
     ("rows that keep no key", 1, 8, 64, False, 16, 100),
+    # a ring prefill chunk: the window's earlier keys, then the chunk's own
+    ("window chunk behind a q_offset", 1, 96, 159, True, 64, 63),
     # the tensor-core kernel's 16-row warp tiles and key splits: Tq of one,
     # just over one and just under two warp tiles behind a q_offset, Tk one
     # short of and one past a 64-key tile
@@ -426,13 +451,15 @@ FLASH_CASES = [
 
 # Attention shapes (H, Hkv, D) of phase 2 per arch, and the softcaps each is
 # checked at: Llama-2-7B and Qwen2-0.5B as before; gemma-7b's D = 256 at
-# both; yi-34b's G = 7 and command-r-plus-104b's G = 12 at D = 128 without
-# a softcap (the fp32 decode kernel's 16 outputs per thread at G = 12).
+# both; yi-34b's G = 7, command-r-plus-104b's G = 12 and mixtral-8x22b's
+# G = 6 at D = 128 without a softcap (the fp32 decode kernel's 16 outputs
+# per thread at G = 12).
 ATTN_SHAPES = {
     "llama-2-7b": (32, 32, 128), "qwen2-0.5b": (14, 2, 64), "gemma-7b": (16, 16, 256),
     "yi-34b": (56, 8, 128), "command-r-plus-104b": (96, 8, 128),
+    "mixtral-8x22b": (48, 8, 128),
 }
-SOFTCAPS = {"yi-34b": (0.0,), "command-r-plus-104b": (0.0,)}
+SOFTCAPS = {"yi-34b": (0.0,), "command-r-plus-104b": (0.0,), "mixtral-8x22b": (0.0,)}
 
 
 def softcaps(arch: str):
@@ -838,7 +865,7 @@ def time_decode_stacking(torch, eng, n: int = 12):
     del caches, out
 
 
-def profile_steps(torch, eng, steps: int = 6, figures=None, op_names=()):
+def profile_steps(torch, eng, steps: int = 6, figures=None, op_names=(), top_ops=False):
     """Where an iteration's time goes, on the served engine with 8 fresh
     offline requests (64-token prompts) decoding: ``steps`` steps timed
     without the profiler, then ``steps`` more under ``torch.profiler``.
@@ -850,7 +877,8 @@ def profile_steps(torch, eng, steps: int = 6, figures=None, op_names=()):
     step and busy times as text, and the p50 and p99 of the engine's
     ``host_gap_s`` samples over the unprofiled steps (``"gap"``).  It also
     prints the device time per step of the kernels launched by each
-    operator of ``op_names`` (for example ``aten::bmm``, the MoE experts)."""
+    operator of ``op_names`` (for example ``aten::bmm``, the MoE experts),
+    and with ``top_ops`` the eight operators with the most device time."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -889,7 +917,8 @@ def profile_steps(torch, eng, steps: int = 6, figures=None, op_names=()):
                  e.count, e.key) for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         op_ms = {e.key: (getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
-                 / steps / 1e3 for e in events if e.key in op_names}
+                 / steps / 1e3 for e in events
+                 if e.key in op_names or (top_ops and e.key.startswith("aten::"))}
     except Exception as e:  # noqa: BLE001 -- a measurement, not the port
         log(f"  profiler unavailable: {e!r}")
         return None
@@ -911,6 +940,10 @@ def profile_steps(torch, eng, steps: int = 6, figures=None, op_names=()):
             f"{name} {op_ms.get(name, 0.0):.3f} ms/step = "
             f"{op_ms.get(name, 0.0) / (busy * 1e3 / steps):.1%} of device busy"
             for name in op_names))
+    if top_ops:
+        log("  top operators by device time: " + ", ".join(
+            f"{name} {ms:.3f} ms/step" for name, ms in sorted(
+                op_ms.items(), key=lambda kv: -kv[1])[:8]))
     for i, (us, n, name) in enumerate(rows):
         if i < 10 or "(anonymous namespace)::" in name:
             log(f"    {us / 1e3:8.3f} ms/step  {n:5d} calls/step  {name[:90]}")
@@ -2365,6 +2398,269 @@ def arch_phase(torch, ops, rpa, cg, fa, serve_mod, tf, build, builds, spec, time
                       gemma["split"][1]["paged_attention"], dims=(256,))
 
 
+# ------------------------------------------------------------------ phase 11
+# The archs that resume by recompute, on the contiguous path (the only one
+# they have).  mamba2-1.3b at full width and depth takes phase 3's workload;
+# mixtral-8x22b at full width and MIXTRAL_LAYERS layers (MIXTRAL_FP32_LAYERS
+# at fp32) takes prompts past its 4096-token window, prefilled in chunks of
+# 512 that cross it, on a pool that forces a preemption (and a recompute
+# across the window); jamba-1.5-large-398b, which does not fit the card at
+# one period, at .reduced().
+MIXTRAL_LAYERS, MIXTRAL_FP32_LAYERS = 8, 2
+MIXTRAL_NEW = 16
+MIXTRAL_ARGV = ["--full", "--device", "cuda", "--dtype", "bfloat16", "--arch", "mixtral-8x22b",
+                "--layers", str(MIXTRAL_LAYERS), "--online", "1", "--offline", "2",
+                "--prompt-len", "18432", "--max-new", str(MIXTRAL_NEW), "--chunk-size", "512",
+                "--online-after", "3", "--num-device-blocks", "640"]
+JAMBA_ARGV = [a for a in SERVE_ARGV if a != "--full"] + ["--arch", "jamba-1.5-large-398b"]
+MAMBA_ARGV = SERVE_ARGV + ["--arch", "mamba2-1.3b"]
+# the fp32 legs' depth: the serve is host-bound (at 48 layers the three legs
+# take about 40 s on an H100)
+MAMBA_FP32_LAYERS = 24
+# forward_full at mixtral's window: one sequence of 8192 tokens, window 4096
+WINDOW_T = 8192
+
+
+def fp32_argv(argv):
+    return [a if a != "bfloat16" else "float32" for a in argv]
+
+
+def depth_cuts(torch):
+    """The parameter counts behind each depth cut of phase 11, and the
+    weights' bytes at the dtype each serve runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    lines = []
+    for arch, layers in (("mamba2-1.3b", None), ("mixtral-8x22b", None),
+                         ("mixtral-8x22b", MIXTRAL_LAYERS),
+                         ("mixtral-8x22b", MIXTRAL_FP32_LAYERS),
+                         ("jamba-1.5-large-398b", None), ("jamba-1.5-large-398b", 8),
+                         ("jamba-1.5-large-398b", "reduced")):
+        cfg = get_config(arch)
+        if layers == "reduced":
+            cfg = cfg.reduced()
+        elif layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        n = cfg.param_count()
+        lines.append(f"{arch} {layers or 'full'} ({cfg.num_layers} layers): {n / 1e9:.3f} B "
+                     f"parameters = {2 * n / 1e9:.1f} GB bf16, {4 * n / 1e9:.1f} GB fp32")
+    free, total = torch.cuda.mem_get_info()
+    for line in lines:
+        log(f"  {line}")
+    log(f"  card memory: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB")
+
+
+def recurrent_serve(torch, ops, serve_mod, tf, argv, profile=False):
+    """One serve of an arch that resumes by recompute (phase 11), on the
+    contiguous path: the flash kernel's calls captured and every kernel
+    counted (zeroed just before, read just after).  Every request must
+    finish with all its tokens, a request must be preempted and resumed by
+    recompute (the checkpointer off, nothing stored or restored), every
+    prefill dispatch must launch the flash kernel once per attention layer
+    and no other kernel may launch; the dispatches must read nothing back.
+    ``profile`` profiles the decode step.  Returns (the serve's result,
+    the counts, the heaviest flash call's arguments)."""
+    cap = Capture(ops.flash_attention, lambda q, k, v: q.shape[1] * k.shape[1], flash_clone)
+    ops.flash_attention = cap
+    try:
+        ops.reset_launch_counts()
+        res = serve(serve_mod, argv)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        ops.flash_attention = cap.fn
+    eng, cfg = res["engine"], res["cfg"]
+    d = eng.dispatches
+    attn_layers = cfg.num_periods * sum(s.mixer == "attn" for s in cfg.layer_pattern())
+    log(f"  {cfg.name}: layers={cfg.num_layers} ({attn_layers} attention) d_model={cfg.d_model} "
+        f"window={cfg.sliding_window} experts={cfg.num_experts} ssm_state={cfg.ssm_state_size} "
+        f"vocab={cfg.vocab_size} {eng.dtype}, {path_of(eng)} path, max_model_len="
+        f"{eng.ec.max_model_len}, cache slots {tf.cache_capacity(cfg, eng.ec.max_model_len)}")
+    log(f"  steps={eng.steps} preemptions={res['preemptions']} checkpointer="
+        f"{'on' if eng.ckpt.enabled else 'off'} ckpt_blocks={eng.ckpt.stats.blocks_checkpointed} "
+        f"restored_blocks={eng.restored_blocks} host_blocks={len(eng.host)} dispatches={d}")
+    log(f"  recomputed tokens at each resume (request, tokens): {eng.recomputed}")
+    log(f"  generated={res['generated']} tokens in {res['seconds']:.3f} s = "
+        f"{res['generated'] / res['seconds']:.1f} tok/s (host clock); {iteration_figures(eng)}")
+    log(f"  launches: {counts}")
+    max_new = int(argv[argv.index("--max-new") + 1])
+    reqs = [h.request for h in res["streams"]] + list(res["job"].requests)
+    short = [r.request_id for r in reqs if len(r.output_tokens) != max_new]
+    if short:
+        raise AssertionError(f"{cfg.name}: requests without all their tokens: {short}")
+    if eng.paged or eng.ckpt.enabled or not eng.recompute_only:
+        raise AssertionError(f"{cfg.name}: not the contiguous path with recompute resume")
+    if (res["preemptions"] == 0 or not eng.recomputed or eng.restored_blocks
+            or eng.ckpt.stats.blocks_checkpointed or len(eng.host)):
+        raise AssertionError(f"{cfg.name}: the run did not preempt and resume by recompute")
+    if counts["flash_attention"] != attn_layers * d["prefill"] or d["prefill"] == 0:
+        raise AssertionError(f"{cfg.name}: flash_attention launches {counts['flash_attention']} "
+                             f"!= {attn_layers} attention layers x {d['prefill']} prefill "
+                             "dispatches")
+    if any(n for name, n in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"{cfg.name}: a kernel other than flash_attention launched")
+    if d["decode"] + d["segment"] == 0:
+        raise AssertionError(f"{cfg.name}: no decode dispatch ran")
+    check_reads_nothing_back(torch, tf, eng)
+    if profile:
+        profile_steps(torch, eng, top_ops=True)
+    return res, counts, cap.args
+
+
+def recurrent_fp32_legs(torch, serve_mod, argv, moe: bool):
+    """Phase 11's fp32 legs, up to the first near-tie: a preempted run's
+    tokens (recompute at each resume) against an uninterrupted run's (a pool
+    of 2048 blocks), and the safepoint-segmented decode's against the plain
+    decode's (``--no-safepoints``).  A MoE arch's segmented decode routes at
+    capacity factor 1.25, as the reference's engine runs it, so its drops
+    follow the batch's make-up: its preempted and uninterrupted runs are
+    compared on the plain (dropless) decode, and its segmented decode
+    against the plain one is reported, not required equal."""
+    argv32 = fp32_argv(argv)
+    plain = ["--no-safepoints"]
+    runs = {}
+    for name, extra in (("segmented preempted", []), ("plain preempted", plain),
+                        ("uninterrupted", ["--num-device-blocks", "2048"]
+                         + (plain if moe else []))):
+        t0 = time.perf_counter()
+        res = serve(serve_mod, argv32 + extra)
+        eng = res["engine"]
+        log(f"  {res['cfg'].name} fp32 {name}: preemptions={res['preemptions']} "
+            f"steps={eng.steps} segment dispatches={eng.dispatches['segment']} "
+            f"recomputed={eng.recomputed} {time.perf_counter() - t0:.1f} s")
+        runs[name] = (res["preemptions"], offline_tokens(res), eng.dispatches["segment"])
+        del res, eng
+        torch.cuda.empty_cache()
+    if (runs["segmented preempted"][0] == 0 or runs["plain preempted"][0] == 0
+            or runs["uninterrupted"][0] != 0 or runs["segmented preempted"][2] == 0
+            or runs["plain preempted"][2] != 0):
+        raise AssertionError("phase 11: the fp32 legs did not contrast preempted and "
+                             "uninterrupted, segmented and plain decodes")
+    name = argv[argv.index("--arch") + 1]
+    preempted = runs["plain preempted" if moe else "segmented preempted"][1]
+    compare_runs(f"{name} preempted vs uninterrupted", preempted, runs["uninterrupted"][1])
+    seg, flat = runs["segmented preempted"][1], runs["plain preempted"][1]
+    if moe:
+        same = sum(ta == tb for (ta, _), (tb, _) in zip(seg, flat))
+        first = [next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+                 for (ta, _), (tb, _) in zip(seg, flat)]
+        log(f"  {name} segmented (capacity 1.25) vs plain decode (dropless): {same} of "
+            f"{len(seg)} requests identical; first differing token per request {first}")
+    else:
+        compare_runs(f"{name} segmented vs plain decode", seg, flat)
+
+
+def ring_prefill_check(torch, ops, fa, tf):
+    """Phase 11(c) at fp32 and MIXTRAL_FP32_LAYERS layers: one sequence of
+    4608 tokens prefilled in chunks of 512 into a ring of 4096 slots
+    (``prefill_chunk``, the flash kernel on every chunk), against
+    ``forward_full`` (dropless) over the sequence: the last logits within
+    FULL_TOL, and the flash kernel launched once per layer per chunk and once
+    per layer in the forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), num_layers=MIXTRAL_FP32_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(cfg, gen, dtype=torch.float32)
+    t, chunk = 4608, 512
+    toks = torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device="cuda")
+    caches = tf.init_caches(cfg, 1, t, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for lo in range(0, t, chunk):
+        logits, _ = tf.prefill_chunk(cfg, params, toks[:, lo:lo + chunk], caches, [lo])
+    torch.cuda.synchronize()
+    chunk_launches = ops.launch_counts()["flash_attention"]
+    ops.reset_launch_counts()
+    full, _, _ = tf.forward_full(cfg, params, toks, capacity_factor=-1.0)
+    torch.cuda.synchronize()
+    full_launches = ops.launch_counts()["flash_attention"]
+    want = full[0, -1]
+    err = (logits[0] - want).abs().max().item()
+    log(f"  mixtral-8x22b {cfg.num_layers} layers fp32, {t} tokens in chunks of {chunk} into a "
+        f"ring of {caches['0']['k'].shape[2]} slots: last logits vs forward_full max_abs_err="
+        f"{err:.3e} (|logits| max {want.abs().max().item():.3f}; tolerance {FULL_TOL}); argmax "
+        f"{int(logits[0].argmax())} vs {int(want.argmax())}; flash launches {chunk_launches} "
+        f"chunked, {full_launches} forward_full")
+    if chunk_launches != cfg.num_layers * (t // chunk) or full_launches != cfg.num_layers:
+        raise AssertionError("ring prefill: flash_attention not launched once per layer and call")
+    if not torch.isfinite(logits).all() or not torch.allclose(logits[0], want, **FULL_TOL):
+        raise AssertionError("ring prefill in chunks disagrees with forward_full")
+    del params, caches, full, logits
+    torch.cuda.empty_cache()
+    return chunk_launches, full_launches
+
+
+def window_entries(torch, fa, spec, timer, ring_args):
+    """Kernel 4 with mixtral's window of 4096: ``forward_full``'s call on
+    WINDOW_T tokens at mixtral's heads (48 / 8 of 128, bf16), and the
+    heaviest ring prefill chunk of the bf16 serve; each against its plain
+    version, with its time, bound (kept pairs only) and SDPA time (a boolean
+    window mask)."""
+    q, k, v = flash_case(torch, torch.bfloat16, 48, 8, 128, 1, WINDOW_T, WINDOW_T, 7, spare=0)
+    kw = dict(causal=True, sliding_window=4096, q_offset=0, logit_softcap=0.0)
+    full = {"case": f"forward_full T={WINDOW_T} window 4096",
+            **flash_entry(torch, fa, (q, k, v, kw), spec, timer)}
+    log(f"  flash_attention, {full['case']}: {full}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    ring = {"case": "heaviest mixtral ring prefill chunk",
+            **flash_entry(torch, fa, ring_args, spec, timer)}
+    log(f"  flash_attention, {ring['case']}: {ring}")
+    return [full, ring]
+
+
+def recurrent_phase(torch, ops, fa, serve_mod, tf, spec, timer, line):
+    """Phase 11: (a) mamba2-1.3b at full width and depth, bf16, phase 3's
+    workload, its decode step profiled; (b) its fp32 legs; (c) mixtral-8x22b
+    at full width and MIXTRAL_LAYERS layers with prompts past the window,
+    its fp32 legs at MIXTRAL_FP32_LAYERS layers and the ring prefill against
+    ``forward_full``; (d) kernel 4 at the window; (e) jamba reduced, served
+    and its fp32 legs.  Adds to the kernel line's flash entry."""
+    depth_cuts(torch)
+    log("[11a] mamba2-1.3b at full width and depth, bf16, contiguous path")
+    recurrent_serve(torch, ops, serve_mod, tf, MAMBA_ARGV, profile=True)
+    torch.cuda.empty_cache()
+    log(f"[11b] mamba2-1.3b at fp32 and {MAMBA_FP32_LAYERS} layers: preempted vs "
+        "uninterrupted, segmented vs plain decode")
+    recurrent_fp32_legs(torch, serve_mod, MAMBA_ARGV + ["--layers", str(MAMBA_FP32_LAYERS)],
+                        moe=False)
+
+    log(f"[11c] mixtral-8x22b at full width, {MIXTRAL_LAYERS} layers, bf16: prompts of 4608 "
+        "tokens past the 4096 window")
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, ring_args = recurrent_serve(torch, ops, serve_mod, tf, MIXTRAL_ARGV)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    serve_launches = counts["flash_attention"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  mixtral-8x22b at fp32 and {MIXTRAL_FP32_LAYERS} layers")
+    argv32 = [a if a != str(MIXTRAL_LAYERS) else str(MIXTRAL_FP32_LAYERS) for a in MIXTRAL_ARGV]
+    recurrent_fp32_legs(torch, serve_mod, argv32, moe=True)
+    chunk_launches, full_launches = ring_prefill_check(torch, ops, fa, tf)
+
+    log("[11d] flash_attention with mixtral's window of 4096")
+    windowed = window_entries(torch, fa, spec, timer, ring_args)
+    del ring_args
+    torch.cuda.empty_cache()
+
+    log("[11e] jamba-1.5-large-398b reduced, bf16 and fp32 legs")
+    _res, jcounts, _args = recurrent_serve(torch, ops, serve_mod, tf, JAMBA_ARGV)
+    del _res, _args
+    recurrent_fp32_legs(torch, serve_mod, JAMBA_ARGV, moe=True)
+    entry = next(e for e in line if e["name"] == "flash_attention")
+    entry["sliding_window_4096"] = {
+        "arch": "mixtral-8x22b", "launches_serve": serve_launches,
+        "launches_ring_prefill_fp32": chunk_launches,
+        "launches_forward_full_fp32": full_launches,
+        "launches_jamba_reduced_serve": jcounts["flash_attention"], "calls": windowed}
+
+
 def launch_cost_us(torch, n: int = 20000) -> float:
     """Host time per launch of a small elementwise kernel (a chain of ``n``
     adds on a 256 x 256 tensor, then a synchronisation): what the host
@@ -2551,6 +2847,13 @@ def main() -> int:
     t10 = time.perf_counter()
     arch_phase(torch, ops, rpa, cg, fa, serve_mod, tf, build, builds, spec, timer, line)
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    log("[11] archs that resume by recompute: mamba2-1.3b, mixtral-8x22b, jamba reduced")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    recurrent_phase(torch, ops, fa, serve_mod, tf, spec, timer, line)
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

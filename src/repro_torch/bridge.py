@@ -8,9 +8,13 @@ a tensor on ``device``, and the period-major stacking is kept as it is.
 A contiguous cache tree (``{pos: {"k", "v", "pos"}}``) keeps its int32
 slot positions as int32.  Every leaf carries over, MoE layers' ``ffn``
 (``router``, ``w_up``, ``w_gate``, ``w_down``, the expert axis after the
-period axis) and a tied-embedding tree's (no ``lm_head``) included; a MoE
-``router`` stays fp32 when the rest is cast, as the reference keeps it.  Tests use it so both packages compute with the
-same weights and caches, with nothing downloaded, and compare the results.
+period axis), Mamba-2 mixers' (``in_proj``, ``conv_w``, ..., stacked
+period-major like every leaf, a hybrid's attention and Mamba positions side
+by side) and a tied-embedding tree's (no ``lm_head``) included; a MoE
+``router`` and a Mamba mixer's ``A_log``, ``dt_bias`` and ``D`` stay fp32
+when the rest is cast, as the reference keeps them.  Tests use it so both
+packages compute with the same weights and caches, with nothing
+downloaded, and compare the results.
 ``replicate`` places a tree on the devices of a tensor-parallel serving
 mesh, where params replicate (DESIGN.md §11).
 """
@@ -23,7 +27,7 @@ import torch
 
 
 # leaves that stay fp32 whatever ``dtype`` the rest is cast to
-FP32_LEAVES = ("router",)
+FP32_LEAVES = ("router", "A_log", "dt_bias", "D")
 
 
 def to_torch(tree: Any, device="cpu", dtype: Optional[torch.dtype] = None) -> Any:

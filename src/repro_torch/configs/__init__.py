@@ -12,10 +12,13 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "command-r-plus-104b": "command_r_plus_104b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "qwen2-0.5b": "qwen2_0_5b",
     "yi-34b": "yi_34b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "gemma-7b": "gemma_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "mamba2-1.3b": "mamba2_1_3b",
     # the paper's own evaluation model
     "llama-2-7b": "llama2_7b",
 }

@@ -9,7 +9,14 @@ serves from contiguous per-request caches instead of the paged pool (its
 prefill chunks run the flash attention kernel).  ``--tp N`` shards the
 paged pools by KV heads over a tensor-parallel serving mesh (DESIGN.md
 §11): the first N cards (it raises with fewer), or with ``--device cpu`` N
-shards on the CPU.
+shards on the CPU.  ``--layers N`` cuts the depth to N layers (a multiple
+of the arch's layer pattern) at either width, for a model whose weights do
+not fit the card at full depth; ``--chunk-size`` sets the prefill chunk.
+
+``--arch`` takes every config of ``repro_torch.configs``.  Sliding-window
+(mixtral-8x22b), SSM (mamba2-1.3b) and hybrid (jamba-1.5-large-398b) archs
+serve on the contiguous path only: ``--backend auto`` resolves to it, and
+``--backend paged`` and ``--tp 2`` refuse them.
 
 * ``real``: a ``Frontend`` in front of the engine; online streams and one
   offline batch job are submitted from this thread between engine steps,
@@ -35,6 +42,10 @@ Examples:
       --device cpu --dtype float32 --online 2 --offline 4 --max-new 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
       --device cpu --dtype float32 --tp 2 --online 2 --offline 4 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full \
+      --arch mamba2-1.3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full \
+      --arch mixtral-8x22b --layers 8 --chunk-size 512
   PYTHONPATH=src python -m repro_torch.launch.serve --mode wallclock --full \
       --duration 20 --rate 2 --offline 16 --metrics-port 9400
   PYTHONPATH=src python -m repro_torch.launch.serve --mode wallclock \
@@ -43,6 +54,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -57,6 +69,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", choices=["real", "wallclock"], default="real")
     ap.add_argument("--full", action="store_true",
                     help="the config at its published width (default: reduced)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the config's)")
+    ap.add_argument("--chunk-size", type=int, default=32,
+                    help="prefill chunk length of the scheduler (--mode real)")
+    ap.add_argument("--no-safepoints", action="store_true",
+                    help="decode without safepoint segments "
+                         "(RealEngineConfig(enable_safepoints=False), --mode real)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(_DTYPES), default="bfloat16")
     ap.add_argument("--online", type=int, default=4)
@@ -121,28 +140,42 @@ def serving_mesh(args):
     return make_serving_mesh(args.tp)
 
 
+def model_config(args, cfg):
+    """``cfg`` cut to ``--layers`` layers when that is set: a multiple of the
+    layer pattern's period, or ``ValueError``."""
+    if not args.layers:
+        return cfg
+    if args.layers % cfg.pattern_period:
+        raise ValueError(f"--layers {args.layers}: not a multiple of {cfg.name}'s "
+                         f"layer pattern of {cfg.pattern_period}")
+    return dataclasses.replace(cfg, num_layers=args.layers)
+
+
 def build_real_engine(args, mesh=None):
     """``--mode real``'s config, weights and engine (calibrated with
     ``--calibrate``): ``(cfg, engine)``.  A ``mesh`` given here replaces
     ``--tp``'s (it may name one card several times)."""
     from ..configs import get_config
+    from ..core.scheduler import SchedulerConfig
     from ..models import transformer as tf
     from ..serving.real_engine import RealEngine, RealEngineConfig
     from .mesh import resolve_device
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = cfg.reduced()
+    cfg = model_config(args, get_config(args.arch) if args.full
+                       else get_config(args.arch).reduced())
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = tf.init_params(cfg, gen, dtype=_DTYPES[args.dtype])
     eng = RealEngine(
         cfg, params,
+        sched_cfg=SchedulerConfig(chunk_size=args.chunk_size, slo_aware=False,
+                                  offline_batch_tokens=4096),
         eng_cfg=RealEngineConfig(
             # size the KV capacity to the requested lengths (the longest job
             # is prompt_len // 4 prompt tokens + max_new generated)
             max_model_len=max(256, args.prompt_len // 4 + args.max_new),
             num_device_blocks=args.num_device_blocks,
+            enable_safepoints=not args.no_safepoints,
             prefix_cache=not args.no_prefix_cache,
             fused_batch=not args.no_fused_batch,
             backend=args.backend,
@@ -246,7 +279,9 @@ def metrics_server(registry, port: int, health_cb=None):
 def wallclock_model(args):
     """``--mode wallclock``'s config and random weights: the published
     width with ``--full``, else the reference's 4-layer reduced variant with
-    a safepoint after every layer.  Returns ``(cfg, params)``."""
+    a safepoint after every layer (one period for a hybrid's longer layer
+    pattern, which 4 layers cannot hold).  ``--layers`` applies to either.
+    Returns ``(cfg, params)``."""
     from ..configs import get_config
     from ..models import transformer as tf
     from .mesh import resolve_device
@@ -254,7 +289,9 @@ def wallclock_model(args):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
-        cfg = cfg.reduced(num_layers=4, safepoint_interval=1)
+        period = cfg.pattern_period
+        cfg = cfg.reduced(num_layers=-(-4 // period) * period, safepoint_interval=1)
+    cfg = model_config(args, cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return cfg, tf.init_params(cfg, gen, dtype=_DTYPES[args.dtype])
 

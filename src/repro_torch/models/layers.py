@@ -131,8 +131,11 @@ def gqa_scores_softmax_values(
 
 
 def causal_mask(q_positions: torch.Tensor, k_positions: torch.Tensor) -> torch.Tensor:
-    """(B, Tq), (B, Tk) -> bool (B, 1, Tq, Tk): True = attend.  The paged
-    paths never run sliding-window archs, so the window is left out."""
+    """(B, Tq), (B, Tk) -> bool (B, 1, Tq, Tk): True = attend.  Its one
+    caller is the split path's paged prefill, and the paged paths take no
+    sliding-window arch (``transformer.supports_paged``), so the reference's
+    ``sliding_window`` argument is left out; windowed attention runs through
+    ``attend_cache`` and the flash attention."""
     return k_positions[:, None, None, :] <= q_positions[:, None, :, None]
 
 
@@ -195,9 +198,18 @@ def write_kv(
     valid: Optional[torch.Tensor] = None,  # (B, L) bool: False is not written
 ) -> Dict[str, torch.Tensor]:
     """Write L new tokens per sequence into slot ``position % C``, in place;
-    an invalid (padded) token leaves its slot as it was.  Returns ``cache``."""
-    b = positions.shape[0]
+    an invalid (padded) token leaves its slot as it was.  Returns ``cache``.
+    A row's positions are consecutive, so C of them fill C distinct slots:
+    more than C tokens (a sequence longer than a ring) are written C at a
+    time, in order, and the last writer of a slot wins, as token-by-token
+    writes would leave it."""
+    b, l = positions.shape
     c = cache["k"].shape[1]
+    if l > c:
+        for j in range(0, l, c):
+            write_kv(cache, k_new[:, j:j + c], v_new[:, j:j + c], positions[:, j:j + c],
+                     None if valid is None else valid[:, j:j + c])
+        return cache
     slots = positions.long() % c
     rows = torch.arange(b, device=positions.device)[:, None]
     positions = positions.to(torch.int32)
@@ -240,38 +252,64 @@ def cached_attention(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode step or prefill chunk against a contiguous cache.
 
-    A prefill chunk on a full cache, with its rows' offsets known on the
-    host (``q_offsets``, as ``prefill_chunk`` passes them), runs the flash
-    attention (kernel on CUDA, plain version on the CPU) over the cache's
-    first ``off + L`` slots with ``q_offset = off``: one call when the rows
-    share their offset, one per row otherwise.  That is ``attend_cache``
-    exactly when slots ``0 .. off + L - 1`` hold positions
-    ``0 .. off + L - 1``, which a full cache filled chunk by chunk from
-    position 0 does; and it reads no value back to the host.  A padded
-    token of a row (``valid`` False) is not written, and only the row's
-    real tokens' outputs are read.  Decode steps (no host offsets) and ring
-    caches keep the plain masked ``attend_cache``: the reference has no
-    kernel there either."""
+    A prefill chunk whose rows' offsets are known on the host
+    (``q_offsets``, as ``prefill_chunk`` passes them) runs the flash
+    attention (kernel on CUDA, plain version on the CPU), one call when the
+    rows share their offset, one per row otherwise; it reads no value back
+    to the host.  On a full cache the chunk is written first and the call
+    reads the cache's first ``off + L`` slots with ``q_offset = off``:
+    ``attend_cache`` exactly, when slots ``0 .. off + L - 1`` hold positions
+    ``0 .. off + L - 1``, as a cache filled chunk by chunk from position 0
+    does.  With a sliding window W the call reads, before the chunk is
+    written, the positions ``max(0, off - W + 1) .. off - 1`` the cache
+    holds (slot ``p % C`` of a ring), in position order, followed by the
+    chunk's own K/V, with ``q_offset`` the number of those earlier
+    positions and the window; then the chunk is written.  So every query
+    sees every key of its window, as in ``forward_full``.  (The reference
+    writes the whole chunk into its ring first, so a chunk that crosses the
+    window overwrites keys its own first queries still need; ROADMAP
+    Queue 3.)  A padded token of a row (``valid`` False) is not written,
+    and only the row's real tokens' outputs are read.  Decode steps (no
+    host offsets) keep the plain masked ``attend_cache`` over the cache
+    after the write: exact for a ring too, and the reference has no kernel
+    there either."""
     q, k, v = project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    write_kv(cache, k, v, positions, valid)
     length = x.shape[1]
-    if q_offsets is None or cfg.sliding_window:
+    window = cfg.sliding_window
+    if q_offsets is None:
+        write_kv(cache, k, v, positions, valid)
         return out_proj(p, attend_cache(cfg, q, cache, positions)), cache
+    if window:
+        kc = k.to(cache["k"].dtype)
+        vc = v.to(cache["v"].dtype)
+        cap = cache["k"].shape[1]
 
-    def flash(qq, kk, vv, off):
+    def flash(rows, off):
+        if not window:
+            return kernel_ops.flash_attention(
+                q[rows], cache["k"][rows, :off + length], cache["v"][rows, :off + length],
+                causal=True, q_offset=off, logit_softcap=cfg.logit_softcap,
+            )
+        lo = max(0, off - window + 1)
+        slots = torch.arange(lo, off, device=q.device) % cap
+        kk = torch.cat([cache["k"][rows].index_select(1, slots), kc[rows]], dim=1)
+        vv = torch.cat([cache["v"][rows].index_select(1, slots), vc[rows]], dim=1)
         return kernel_ops.flash_attention(
-            qq, kk[:, :off + length], vv[:, :off + length], causal=True,
-            q_offset=off, logit_softcap=cfg.logit_softcap,
+            q[rows], kk, vv, causal=True, sliding_window=window, q_offset=off - lo,
+            logit_softcap=cfg.logit_softcap,
         )
 
+    if not window:
+        write_kv(cache, k, v, positions, valid)
     offs = [int(o) for o in q_offsets]
     if len(set(offs)) == 1:
-        attn = flash(q, cache["k"], cache["v"], offs[0])
+        attn = flash(slice(None), offs[0])
     else:
-        attn = torch.cat([flash(q[i:i + 1], cache["k"][i:i + 1], cache["v"][i:i + 1], o)
-                          for i, o in enumerate(offs)])
+        attn = torch.cat([flash(slice(i, i + 1), o) for i, o in enumerate(offs)])
+    if window:
+        write_kv(cache, k, v, positions, valid)
     return out_proj(p, attn), cache
 
 

@@ -19,13 +19,17 @@ The paged entry points take a tensor-parallel serving ``mesh`` (DESIGN.md
 (``init_paged_pools(mesh=...)``) and every paged layer runs its KV writes and
 attention per shard (``layers``).
 
-Architectures whose every layer is plain causal full attention run here,
-with a dense MLP or a Mixture-of-Experts FFN (``models/moe.py``: dropless
-on every serving entry point, capacity factor 1.25 by default on
-``forward_full`` and ``run_segment``, as in the reference).  The other
-families (sliding windows, SSM, cross-attention and VLMs, encoders) raise
-``NotImplementedError`` naming their sub-item of ROADMAP Queue 1 item 3,
-the contiguous fallback's other archs.
+Causal decoder stacks run here: full or sliding-window attention, Mamba-2
+SSM mixers (``models/mamba2.py``, plain PyTorch as in the reference) and
+hybrids of the two, with a dense MLP or a Mixture-of-Experts FFN
+(``models/moe.py``: dropless on every serving entry point, capacity factor
+1.25 by default on ``forward_full`` and ``run_segment``, as in the
+reference).  Only plain causal full-attention stacks take the paged entry
+points (``supports_paged``); sliding windows keep a ring cache of
+``min(max_seq, window)`` slots and SSM mixers a ``{"ssm", "conv"}`` state
+per sequence, on the contiguous entry points only.  Cross-attention and
+VLMs, and encoders, raise ``NotImplementedError`` naming their sub-item of
+ROADMAP Queue 1 item 3, the contiguous fallback's other archs.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..distributed import sharding
-from . import moe
-from .config import FFN_MOE, MIXER_ATTN, ModelConfig
+from . import mamba2, moe
+from .config import FFN_MOE, MIXER_ATTN, MIXER_MAMBA, ModelConfig
 from .layers import (
     KVCache,
     RaggedMeta,
@@ -71,16 +75,10 @@ def supports_paged(cfg: ModelConfig) -> bool:
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet,
     naming its ROADMAP item."""
-    if cfg.has_ssm_state:
-        what, item = "SSM and hybrid layers (mamba2, jamba)", "3.4"
-    elif cfg.cross_attn_period or cfg.vision_dim:
+    if cfg.cross_attn_period or cfg.vision_dim:
         what, item = "cross-attention and image embeds (llama-3.2-vision)", "3.5"
     elif not cfg.causal or not cfg.embed_inputs:
         what, item = "the encoder branch (hubert)", "3.6"
-    elif cfg.sliding_window:
-        what, item = "ring caches for sliding windows (mixtral)", "3.3"
-    elif not supports_paged(cfg):
-        what, item = "layers other than causal full attention", "3"
     else:
         return
     raise NotImplementedError(
@@ -121,17 +119,20 @@ def init_params(
         params["lm_head"] = normal((d, cfg.vocab_size), d**-0.5)
     layers = {}
     for i, spec in enumerate(cfg.layer_pattern()):
-        mixer = {
-            "wq": normal((P, d, h, hd), d**-0.5),
-            "wk": normal((P, d, hkv, hd), d**-0.5),
-            "wv": normal((P, d, hkv, hd), d**-0.5),
-            "wo": normal((P, h, hd, d), (h * hd) ** -0.5),
-        }
-        if cfg.qkv_bias:
-            mixer.update(bq=zeros((P, h, hd)), bk=zeros((P, hkv, hd)),
-                         bv=zeros((P, hkv, hd)))
-        if cfg.o_bias:
-            mixer["bo"] = zeros((P, d))
+        if spec.mixer == MIXER_MAMBA:
+            mixer = mamba2.init_mamba(cfg, generator, dtype, P)
+        else:
+            mixer = {
+                "wq": normal((P, d, h, hd), d**-0.5),
+                "wk": normal((P, d, hkv, hd), d**-0.5),
+                "wv": normal((P, d, hkv, hd), d**-0.5),
+                "wo": normal((P, h, hd, d), (h * hd) ** -0.5),
+            }
+            if cfg.qkv_bias:
+                mixer.update(bq=zeros((P, h, hd)), bk=zeros((P, hkv, hd)),
+                             bv=zeros((P, hkv, hd)))
+            if cfg.o_bias:
+                mixer["bo"] = zeros((P, d))
         layer = {"norm1": ones((P, d)), "norm2": ones((P, d)), "mixer": mixer}
         if spec.ffn == FFN_MOE:
             layer["ffn"] = moe.init_moe(cfg, generator, dtype, P)
@@ -211,18 +212,21 @@ def init_caches(
     device="cpu",
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Contiguous per-pattern-position caches, each leaf stacked over
-    periods: ``{"k", "v"}`` (P, B, C, Hkv, D) and ``"pos"`` (P, B, C),
-    -1 for empty slots."""
+    periods.  Attention: ``{"k", "v"}`` (P, B, C, Hkv, D) and ``"pos"``
+    (P, B, C), -1 for empty slots, with C = ``cache_capacity`` (a ring of
+    the window's slots for a sliding window).  Mamba: ``"ssm"`` (P, B, nh,
+    hd, dstate) fp32 and ``"conv"`` (P, B, W - 1, channels) in ``dtype``,
+    zero."""
+    _check_supported(cfg)
     caches = {}
     cap = cache_capacity(cfg, max_seq)
     for i, spec in enumerate(cfg.layer_pattern()):
-        if spec.mixer != MIXER_ATTN:
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer} caches are not ported yet "
-                f"({ARCHS_ITEM})"
-            )
-        one = KVCache.init(batch, cap, cfg.num_kv_heads, cfg.resolved_head_dim,
-                           dtype, device)
+        if spec.mixer == MIXER_MAMBA:
+            st = mamba2.zero_state(cfg, batch, dtype, device)
+            one = {"ssm": st.ssm, "conv": st.conv}
+        else:
+            one = KVCache.init(batch, cap, cfg.num_kv_heads, cfg.resolved_head_dim,
+                               dtype, device)
         caches[str(i)] = {
             k: v[None].repeat((cfg.num_periods,) + (1,) * v.ndim) for k, v in one.items()
         }
@@ -320,9 +324,14 @@ def run_periods(
     chunk or one-token decode.  Contiguous (``block_tables`` None):
     ``full`` runs the whole sequence with no prior context and, when
     ``caches`` is given, emits them (writes the roped K/V); ``prefill`` and
-    ``decode`` attend through the caches (``cached_attention``).  A MoE
-    layer routes every row, padded ones too, with ``capacity_factor``."""
+    ``decode`` attend through the caches (``cached_attention``).  A Mamba
+    layer runs ``mamba_full`` from its carried state (zeros without caches)
+    on ``full`` and ``prefill``, ``mamba_decode_step`` on ``decode``, and
+    writes the new state into its caches in place.  A MoE layer routes every
+    row, padded ones too, with ``capacity_factor``."""
     paged = block_tables is not None
+    if paged and not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: the paged entry points need plain causal KV")
     if paged and ((mode == "ragged") != (meta is not None) or mode not in PAGED_MODES):
         raise ValueError(f"paged mode {mode!r} with meta={meta is not None}")
     if not paged and (meta is not None or mode not in CONTIGUOUS_MODES or mesh is not None
@@ -334,7 +343,17 @@ def run_periods(
             lp = _period(layer_params[str(i)], per)
             cache = _period(caches[str(i)], per) if caches is not None else None
             h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-            if paged and mode == "ragged":
+            if spec.mixer == MIXER_MAMBA:
+                state = (None if cache is None
+                         else mamba2.MambaState(ssm=cache["ssm"], conv=cache["conv"]))
+                if mode == "decode":
+                    mix, state = mamba2.mamba_decode_step(cfg, lp["mixer"], h, state)
+                else:  # full or prefill: the chunked SSD from the carried state
+                    mix, state = mamba2.mamba_full(cfg, lp["mixer"], h, state)
+                if cache is not None:
+                    cache["ssm"].copy_(state.ssm)
+                    cache["conv"].copy_(state.conv)
+            elif paged and mode == "ragged":
                 mix, _ = paged_ragged_attention(
                     cfg, lp["mixer"], h, cache, block_tables, positions, meta, mesh
                 )
@@ -558,8 +577,13 @@ def prefill_chunk(
     """Chunked prefill on contiguous caches.  Returns ((B, V) logits of each
     row's last valid token, caches updated in place).  ``offsets`` are host
     integers (the reference takes a device array): the engine knows them,
-    and the flash kernel's ``q_offset`` needs them without a read-back."""
+    and the flash kernel's ``q_offset`` needs them without a read-back.
+    Mamba layers refuse padded chunks (``lengths``), as in the reference:
+    padding would run through the recurrent state, so the engine prefills
+    SSM sequences unpadded, one per dispatch."""
     _check_supported(cfg)
+    if lengths is not None and cfg.has_ssm_state:
+        raise ValueError("ragged chunked prefill unsupported for SSM layers")
     x = embed(cfg, params, tokens)
     b, l = tokens.shape
     positions = _chunk_positions(offsets, l, x.device)

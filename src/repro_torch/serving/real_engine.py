@@ -7,9 +7,11 @@ the fused ragged batch (``fused_batch=True``, the default) or the split
 per-family dispatches (``fused_batch=False``, the fused path's differential
 oracle), on one device or over a tensor-parallel serving mesh (``mesh``),
 and the contiguous per-request caches (``backend="contiguous"``); serial,
-or on the fused paged path pipelined (``pipeline=True``).  Any architecture
-but a causal full-attention stack (dense or Mixture-of-Experts FFN) raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+or on the fused paged path pipelined (``pipeline=True``).  Causal full
+attention stacks (dense or Mixture-of-Experts FFN) run on every path;
+sliding-window (ring caches), SSM and hybrid stacks on the contiguous path
+only, and they resume a preempted request by recompute.  Cross-attention
+and encoder archs raise ``NotImplementedError`` naming their ROADMAP item.
 
 * Physical KV layout: shared pools ``(num_periods, num_device_blocks + 1,
   block_size, Hkv, D)`` per pattern position, updated in place; the last
@@ -32,9 +34,15 @@ but a causal full-attention stack (dense or Mixture-of-Experts FFN) raises
   every layer; the plan's decodes concatenate their requests' caches into
   one batch, run ``decode_step`` (segment by segment when preemptible:
   ``run_segment``, plain masked attention over the cache, as in the
-  reference) and slice the batch back.  Checkpoints copy cache slots to the
-  host, a swap-out does the same, a discard drops the cache, and a resume
-  builds a fresh cache and restores the stored blocks into it.
+  reference) and slice the batch back; Mamba layers' ``ssm`` / ``conv``
+  states ride along the same batch axis.  Checkpoints copy the attention
+  positions' cache slots to the host, a swap-out does the same, a discard
+  drops the cache, and a resume builds a fresh cache and restores the
+  stored blocks into it.  Where a block of slots is not all of a
+  sequence's state -- SSM state, a ring cache smaller than
+  ``max_model_len`` -- the checkpointer is off (as in the reference's
+  ``ckpt_ok``): a preempted request's cache is dropped and its whole
+  context is prefilled again when it resumes (DESIGN.md §4).
 * Tensor parallelism (DESIGN.md §11): ``RealEngineConfig.mesh``, a
   ``launch.mesh.ServingMesh`` of tp devices, shards the paged pools by KV
   heads (a replica per device where tp does not divide them); one
@@ -233,12 +241,12 @@ class RealEngine:
             raise ValueError(f"unknown backend {eng_cfg.backend!r}")
         if eng_cfg.backend == "paged" and not tf.supports_paged(cfg):
             raise ValueError(f"{cfg.name}: arch cannot run the paged backend")
-        # every arch the port runs is a causal full-attention stack (dense or
-        # MoE FFN), which runs paged or contiguous; the others fall back to
-        # the contiguous layout in the reference and raise here, naming
-        # their item of ROADMAP Queue 1, the contiguous fallback's other archs
+        # cross-attention and encoder archs fall back to the contiguous
+        # layout in the reference and raise here, naming their item of
+        # ROADMAP Queue 1, the contiguous fallback's other archs
         tf._check_supported(cfg)
-        self.paged = eng_cfg.backend != "contiguous"
+        self.paged = eng_cfg.backend == "paged" or (
+            eng_cfg.backend == "auto" and tf.supports_paged(cfg))
         self.pipeline = bool(eng_cfg.pipeline)
         if self.pipeline and not (self.paged and eng_cfg.fused_batch):
             raise ValueError(
@@ -296,13 +304,25 @@ class RealEngine:
         lat = AnalyticalCostModel(cfg, hw)  # the prior until measured
         self.sched = UnifiedScheduler(cfg, lat, slo, self.blocks, sched_cfg)
 
-        # KV-block checkpoint/restore is exact for every arch the port runs
-        # (plain causal full attention, paged or contiguous)
+        # KV-block checkpoint/restore is exact for plain causal attention;
+        # SSM state and ring caches smaller than max_model_len resume by full
+        # recompute instead (the reference's ckpt_ok, DESIGN.md §4)
+        self.recompute_only = (
+            cfg.has_ssm_state
+            or bool(cfg.cross_attn_period)
+            or not cfg.causal
+            or tf.cache_capacity(cfg, eng_cfg.max_model_len) != eng_cfg.max_model_len
+        )
+        if self.recompute_only and sched_cfg.swap_on_preempt:
+            # a swap-out keeps KV blocks and the scheduler then counts the
+            # whole context recoverable, which such a cache is not
+            raise ValueError(f"{cfg.name}: swap_on_preempt needs KV-block restore; this "
+                             "arch resumes by recompute")
         self.ckpt = Checkpointer(
             self.blocks,
             AdaptiveCheckpointPolicy(start_threshold=0.0),  # always checkpoint
             block_bytes(cfg, eng_cfg.block_size),
-            enabled=eng_cfg.enable_checkpointing,
+            enabled=eng_cfg.enable_checkpointing and not self.recompute_only,
         )
         self.flag = PreemptionFlag()
         self.safepoints = SegmentedExecution(self.flag)
@@ -315,6 +335,9 @@ class RealEngine:
         self.cow_dispatches = 0  # COW block-copy rounds run on device
         self.ckpt_gathers = 0  # checkpoint gather rounds (one staging copy each)
         self.restored_blocks = 0  # host blocks scattered back by resumes
+        # per resume, (request id, tokens it prefills again): the recompute
+        # that the host store did not cover
+        self.recomputed: List[Tuple[int, int]] = []
         # model dispatches by entry point, under the reference's names
         self.dispatches: Dict[str, int] = {
             "prefill": 0, "decode": 0, "segment": 0,
@@ -522,13 +545,14 @@ class RealEngine:
                               device=self.device)
 
     def _extract_block(self, cache: Any, block_idx: int) -> Any:
-        """Host copy of one block's slots of every leaf of a B=1 cache:
-        ``{pos: {"k", "v": (P, 1, bs, Hkv, D), "pos": (P, 1, bs)}}``."""
+        """Host copy of one block's slots of every attention position of a
+        B=1 cache: ``{pos: {"k", "v": (P, 1, bs, Hkv, D), "pos": (P, 1,
+        bs)}}`` (only positions that hold ``"k"`` have slots)."""
         lo = block_idx * self.ec.block_size
         hi = lo + self.ec.block_size
         return {pos: {name: leaf[:, :, lo:hi].to("cpu", copy=True)
                       for name, leaf in c.items()}
-                for pos, c in cache.items()}
+                for pos, c in cache.items() if "k" in c}
 
     def _restore_block(self, cache: Any, block_idx: int, stored: Any) -> Any:
         """Write a stored block back into its slots of ``cache``, in place."""
@@ -575,6 +599,8 @@ class RealEngine:
                     self.host.pop(rid, idx)
             elif kind == "resume":
                 nrec = self.blocks.blocks_for_tokens(req.host_recoverable)
+                if req.prefill_remaining:
+                    self.recomputed.append((rid, req.prefill_remaining))
                 if self.paged:
                     sb = self.blocks.seq(rid)
                     devs, blks = [], []

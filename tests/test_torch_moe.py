@@ -4,8 +4,10 @@
 (dropless and at a capacity factor that drops tokens) and its dense oracle
 on the same weights (the reference's ``init_moe`` carried over by
 ``repro_torch.bridge``) and the same numpy inputs, at fp32, on
-``olmoe-1b-7b`` reduced (4 experts, top 2) and on a wider reduced variant
-(16 experts, top 4) where a factor of 1.25 drops assignments.
+``olmoe-1b-7b`` reduced (4 experts, top 2), on a wider reduced variant
+(16 experts, top 4) where a factor of 1.25 drops assignments, and at the
+routings of mixtral-8x22b (8 experts, top 2) and jamba-1.5-large-398b (16
+experts, top 2).
 """
 import dataclasses
 import functools
@@ -29,6 +31,8 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 VARIANTS = {
     "reduced": {},
     "16 experts top 4": dict(num_experts=16, experts_per_token=4),
+    "mixtral 8 experts top 2": dict(num_experts=8, experts_per_token=2),
+    "jamba 16 experts top 2": dict(num_experts=16, experts_per_token=2),
     "geglu": dict(activation="geglu"),
     "gelu": dict(activation="gelu"),
 }
@@ -56,10 +60,13 @@ def _x(cfg, shape, seed):
 SHAPES = [(1, 1), (1, 13), (3, 8)]
 
 
-# every shape for the two routings; one shape for the other activations
+# every shape for the two routings; one shape for the other activations; a
+# token and a prefill wave at mixtral's and jamba's routings
 CASES = [(v, s, f) for v in ("reduced", "16 experts top 4") for s in SHAPES
          for f in (-1.0, 1.25)] + [(v, (1, 13), f) for v in ("geglu", "gelu")
-                                   for f in (-1.0, 1.25)]
+                                   for f in (-1.0, 1.25)] + [
+    (v, s, f) for v in ("mixtral 8 experts top 2", "jamba 16 experts top 2")
+    for s in ((1, 1), (3, 8)) for f in (-1.0, 1.25)]
 
 
 @pytest.mark.parametrize("variant,shape,factor", CASES,
