@@ -17,7 +17,9 @@ any failure exits non-zero before the result lines:
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at fp32 and bf16, at the attention shapes of ``ATTN_SHAPES``
    (Llama-2-7B, Qwen2-0.5B, gemma-7b's head dim 256, yi-34b's and
-   command-r-plus-104b's groups of 7 and 12), with cases at the
+   command-r-plus-104b's groups of 7 and 12; for the flash kernel also
+   hubert-xlarge's head dim 80 and llama-3.2-vision-11b's cross-attention
+   calls, ``CROSS_CASES``), with cases at the
    tensor-core kernels' 16-row and 64-key edges, and decode batches that
    the bf16 decode kernel cuts into several key splits (``DECODE_CASES``;
    each logs its splits).
@@ -153,6 +155,30 @@ any failure exits non-zero before the result lines:
    at ``.reduced()`` (one period of its full width does not fit the card;
    the parameter counts behind each depth cut are logged), served at bf16,
    and its fp32 legs.
+12. The last two architecture families, after phase 11's models are freed
+   (memory logged): (a) llama-3.2-vision-11b at full width and depth
+   (40 layers in periods of 4 self-attention and 1 cross-attention layer),
+   bf16, random weights from seed 0, on the contiguous path (its only
+   one): phase 3's workload with each request given its own 576 x 1280
+   image embeds from the seed, submitted to ``RealEngine`` directly; every
+   request finishes, preemptions and the tokens recomputed at each resume
+   are counted, the flash kernel's launches must equal (32 self + 8 cross)
+   x prefill dispatches + 8 x decode dispatches + (cross layers per
+   segment) x segment dispatches (the cross-attention runs the kernel
+   non-causally over the image's K/V at every prefill chunk and decode),
+   the dispatches read nothing back, and one decode step is profiled with
+   the share of stacking the cross K/V; (b) its fp32 legs at
+   VLM_FP32_LAYERS layers, preempted against uninterrupted and segmented
+   against plain decode up to the first near-tie, and one request's
+   chunked prefill against ``forward_full(image_embeds=...)`` (FULL_TOL);
+   (c) hubert-xlarge at full width and depth (48 layers, D = 80, an encoder
+   with no serving path): ``forward_full`` on 2 x 1500 frames at bf16 and
+   fp32, the fp32 logits against the kernel's plain version (FULL_TOL), and
+   flipping the last frame moves the first position's logits; (d) the
+   kernel line's flash entry gains ``head_dim_80`` (hubert's call) and
+   ``cross_attention`` (the serve's heaviest cross prefill call and its
+   largest decode batch), each against its plain version, with time, host
+   enqueue, bound and SDPA time.
 Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -449,6 +475,18 @@ FLASH_CASES = [
 ]
 
 
+# Phase 2's flash cases at the last two archs' shapes: every FLASH_CASES
+# entry at hubert-xlarge's heads (16 / 16 of D = 80, a head dim only the
+# flash kernel takes), and llama-3.2-vision-11b's cross-attention calls at
+# its heads (32 / 8 of 128): non-causal over its 576 image keys, a decode
+# batch of 12 rows of one query (K/V a torch.cat of 12 caches, batch stride
+# 576 rows) and a prefill chunk of 32 queries.
+HUBERT_SHAPE = (16, 16, 80)
+VLM_SHAPE = (32, 8, 128)
+CROSS_CASES = [("cross-attention decode batch", 12, 1, 576, False, 0, 0),
+               ("cross-attention prefill chunk", 1, 32, 576, False, 0, 0)]
+
+
 # Attention shapes (H, Hkv, D) of phase 2 per arch, and the softcaps each is
 # checked at: Llama-2-7B and Qwen2-0.5B as before; gemma-7b's D = 256 at
 # both; yi-34b's G = 7, command-r-plus-104b's G = 12 and mixtral-8x22b's
@@ -459,7 +497,8 @@ ATTN_SHAPES = {
     "yi-34b": (56, 8, 128), "command-r-plus-104b": (96, 8, 128),
     "mixtral-8x22b": (48, 8, 128),
 }
-SOFTCAPS = {"yi-34b": (0.0,), "command-r-plus-104b": (0.0,), "mixtral-8x22b": (0.0,)}
+SOFTCAPS = {"yi-34b": (0.0,), "command-r-plus-104b": (0.0,), "mixtral-8x22b": (0.0,),
+            "hubert-xlarge": (0.0,), "llama-3.2-vision-11b": (0.0,)}
 
 
 def softcaps(arch: str):
@@ -478,12 +517,17 @@ def flash_case(torch, dtype, h, hkv, d, b, tq, tk, seed, spare=40):
 
 def check_flash(torch, fa):
     """Phase 2, flash_attention: every FLASH_CASES entry at each arch's
-    softcaps, fp32 and bf16, at every ATTN_SHAPES entry."""
+    softcaps, fp32 and bf16, at every ATTN_SHAPES entry and at
+    HUBERT_SHAPE (D = 80), and the CROSS_CASES at VLM_SHAPE (K/V with no
+    spare rows, as a torch.cat of caches)."""
+    shapes = [(arch, shape, FLASH_CASES, 40) for arch, shape in ATTN_SHAPES.items()]
+    shapes += [("hubert-xlarge", HUBERT_SHAPE, FLASH_CASES, 40),
+               ("llama-3.2-vision-11b", VLM_SHAPE, CROSS_CASES, 0)]
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for arch, (h, hkv, d) in ATTN_SHAPES.items():
-            for case, b, tq, tk, causal, window, off in FLASH_CASES:
+        for arch, (h, hkv, d), cases, spare in shapes:
+            for case, b, tq, tk, causal, window, off in cases:
                 for cap in softcaps(arch):
-                    q, k, v = flash_case(torch, dtype, h, hkv, d, b, tq, tk, 5)
+                    q, k, v = flash_case(torch, dtype, h, hkv, d, b, tq, tk, 5, spare)
                     kw = dict(causal=causal, sliding_window=window, q_offset=off,
                               logit_softcap=cap)
                     got = fa.flash_attention(q, k, v, **kw)
@@ -799,7 +843,8 @@ def check_reads_nothing_back(torch, tf, eng):
     ``decode_step_paged`` on the served engine's pools (over its mesh, if
     it has one), every row on the scratch block.  Contiguous: two
     ``prefill_chunk`` dispatches (the second behind the first, so the flash
-    kernel reads a cached prefix) and one ``decode_step`` on a fresh cache."""
+    kernel reads a cached prefix; a VLM's first with image embeds, which
+    write the cross K/V) and one ``decode_step`` on a fresh cache."""
     import numpy as np
 
     b, scratch = 8, eng._scratch_block
@@ -814,6 +859,10 @@ def check_reads_nothing_back(torch, tf, eng):
         offs = eng._put(np.zeros((b,), np.int32))
     else:
         caches = tf.init_caches(eng.cfg, b, eng.ec.max_model_len, eng.dtype, eng.device)
+        img = None
+        if eng.cfg.vision_dim:
+            img = eng._put(np.zeros((b, eng.cfg.num_image_tokens, eng.cfg.vision_dim),
+                                    np.float32))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -829,7 +878,7 @@ def check_reads_nothing_back(torch, tf, eng):
             tf.decode_step_paged(eng.cfg, eng.params, offs, eng.pools, tables, lens,
                                  mesh=eng.mesh)
         else:
-            tf.prefill_chunk(eng.cfg, eng.params, toks, caches, [0] * b)
+            tf.prefill_chunk(eng.cfg, eng.params, toks, caches, [0] * b, image_embeds=img)
             tf.prefill_chunk(eng.cfg, eng.params, toks, caches, [32] * b)
             tf.decode_step(eng.cfg, eng.params, last, caches, lens)
     finally:
@@ -838,16 +887,18 @@ def check_reads_nothing_back(torch, tf, eng):
     log(f"  {path_of(eng)} dispatches ran under sync debug mode 'error': no host read-back")
 
 
-def time_decode_stacking(torch, eng, n: int = 12):
+def time_decode_stacking(torch, eng, n: int = 12, names=None):
     """Host-clock time of the contiguous decode's batching: concatenating
-    ``n`` requests' B=1 caches (every leaf) into one batch, as
-    ``RealEngine._decode_contiguous`` does each decode step."""
+    ``n`` requests' B=1 caches (every leaf, or only the leaves ``names``)
+    into one batch, as ``RealEngine._decode_contiguous`` does each decode
+    step.  Returns the time in ms."""
     caches = [eng._fresh_cache(None) for _ in range(n)]
-    first = caches[0]
+    keep = {pos: [name for name in c if names is None or name in names]
+            for pos, c in caches[0].items()}
 
     def stack():
         return {pos: {name: torch.cat([c[pos][name] for c in caches], dim=1)
-                      for name in first[pos]} for pos in first}
+                      for name in leaves} for pos, leaves in keep.items() if leaves}
 
     stack()
     torch.cuda.synchronize()
@@ -859,10 +910,12 @@ def time_decode_stacking(torch, eng, n: int = 12):
     ms = (time.perf_counter() - t0) / reps * 1e3
     nbytes = 2 * sum(leaf.numel() * leaf.element_size()
                      for c in out.values() for leaf in c.values())
+    what = "every leaf" if names is None else "leaves " + "/".join(names)
     log(f"  stacking {n} caches of max_model_len {eng.ec.max_model_len} for one decode step "
-        f"(torch.cat, every leaf): {ms:.3f} ms for {nbytes / 1e6:.1f} MB read and written "
+        f"(torch.cat, {what}): {ms:.3f} ms for {nbytes / 1e6:.1f} MB read and written "
         f"= {nbytes / ms / 1e9:.2f} TB/s")
     del caches, out
+    return ms
 
 
 def profile_steps(torch, eng, steps: int = 6, figures=None, op_names=(), top_ops=False):
@@ -1094,6 +1147,8 @@ def sdpa_call(torch, q, k, v, kw):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     extra = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
     tq, tk = q.shape[1], k.shape[1]
+    if not kw["causal"] and not kw["sliding_window"]:
+        return lambda: sdpa(qt, kt, vt, **extra)
     if kw["causal"] and not kw["q_offset"] and not kw["sliding_window"] and tq == tk:
         return lambda: sdpa(qt, kt, vt, is_causal=True, **extra)
     mask = flash_keep(torch, tq, tk, kw["causal"], kw["sliding_window"],
@@ -2661,6 +2716,356 @@ def recurrent_phase(torch, ops, fa, serve_mod, tf, spec, timer, line):
         "launches_jamba_reduced_serve": jcounts["flash_attention"], "calls": windowed}
 
 
+# ------------------------------------------------------------------ phase 12
+# The last two architecture families at full width and depth, random weights
+# from seed 0.  llama-3.2-vision-11b serves phase 3's workload on the
+# contiguous path (its only one), each request with its own image embeds,
+# submitted to RealEngine directly; its fp32 legs run at VLM_FP32_LAYERS
+# layers.  hubert-xlarge, an encoder (no serving path), runs forward_full on
+# HUBERT_FRAMES frames per sequence.
+VLM_ARGV = SERVE_ARGV + ["--arch", "llama-3.2-vision-11b"]
+VLM_FP32_LAYERS = 40
+HUBERT_FRAMES = 1500  # 30 s of 20 ms frames
+
+
+class CrossCapture:
+    """Wraps ``ops.flash_attention`` during a VLM serve: delegates every
+    call unchanged, counts self-attention (causal) and cross-attention
+    (non-causal) calls, the latter split by query rows per sequence: more
+    than one (prefill chunks) or one (decode batches, and a prefill chunk
+    of one token); keeps a clone of the heaviest cross call of each kind
+    (most query-key pairs: the heaviest prefill chunk, the largest decode
+    batch)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = {"self": 0, "cross chunk": 0, "cross one query": 0}
+        self.best, self.args = {}, {}
+
+    def __call__(self, q, k, v, **kw):
+        if kw.get("causal", True):
+            self.calls["self"] += 1
+        else:
+            kind = "cross one query" if q.shape[1] == 1 else "cross chunk"
+            self.calls[kind] += 1
+            n = q.shape[0] * q.shape[1] * k.shape[1]
+            if n > self.best.get(kind, -1):
+                self.best[kind], self.args[kind] = n, flash_clone(q, k, v, **kw)
+        return self.fn(q, k, v, **kw)
+
+
+def vlm_serve(torch, ops, serve_mod, argv):
+    """Phase 3's workload on the VLM, each request with its own
+    (num_image_tokens, vision_dim) image embeds from the seed, submitted to
+    the engine that ``serve --mode real`` builds from ``argv``: the offline
+    batch, ``--online-after`` steps, then the online arrivals.  Kernels
+    counted (zeroed just before, read just after) and the flash calls
+    captured (``CrossCapture``).  Every request must finish with all its
+    tokens.  Returns the engine, the requests, the counts, the capture and
+    the seconds."""
+    import numpy as np
+
+    from repro_torch.core.request import Priority, Request
+
+    args = serve_mod.build_parser().parse_args(argv)
+    cfg, eng = serve_mod.build_real_engine(args)
+    eng.margins = {}
+    online, offline = serve_mod.real_prompts(args, cfg)
+    rng = np.random.default_rng(args.seed)
+    images = rng.standard_normal((len(online) + len(offline), cfg.num_image_tokens,
+                                  cfg.vision_dim), dtype=np.float32)
+
+    def request(prio, prompt, img):
+        return Request(prio, prompt_len=len(prompt), max_new_tokens=args.max_new,
+                       arrival_time=eng._clock(), prompt=prompt, image_embeds=img)
+
+    cap = CrossCapture(ops.flash_attention)
+    ops.flash_attention = cap
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [request(Priority.OFFLINE, p, img) for p, img in zip(offline, images)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=args.online_after)
+        arrivals = [request(Priority.ONLINE, p, img)
+                    for p, img in zip(online, images[len(offline):])]
+        for r in arrivals:
+            eng.on_online_arrival(r)
+        eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        ops.flash_attention = cap.fn
+    short = [r.request_id for r in reqs + arrivals if len(r.output_tokens) != args.max_new]
+    if short:
+        raise AssertionError(f"{cfg.name}: requests without all their tokens: {short}")
+    generated = sum(len(r.output_tokens) for r in reqs + arrivals)
+    preemptions = sum(r.num_preemptions for r in reqs + arrivals)
+    log(f"  {cfg.name}: layers={cfg.num_layers} ({cfg.num_periods} periods of "
+        f"{[s.mixer for s in cfg.layer_pattern()]}) d_model={cfg.d_model} heads="
+        f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} image tokens="
+        f"{cfg.num_image_tokens} x {cfg.vision_dim} {eng.dtype}, {path_of(eng)} path, "
+        f"{eng.ec.num_device_blocks} blocks")
+    log(f"  steps={eng.steps} preemptions={preemptions} checkpointer="
+        f"{'on' if eng.ckpt.enabled else 'off'} restored_blocks={eng.restored_blocks} "
+        f"dispatches={eng.dispatches}; recomputed tokens at each resume (request, tokens): "
+        f"{eng.recomputed}")
+    log(f"  generated={generated} tokens in {seconds:.3f} s = {generated / seconds:.1f} tok/s "
+        f"(host clock); {iteration_figures(eng)}")
+    log(f"  launches: {counts}; flash calls by kind: {cap.calls}")
+    return {"cfg": cfg, "engine": eng, "reqs": reqs, "arrivals": arrivals, "counts": counts,
+            "capture": cap, "seconds": seconds, "preemptions": preemptions}
+
+
+def check_vlm_serve(torch, tf, res):
+    """Phase 12(a)'s checks of a preempted VLM serve: the contiguous path
+    with recompute resume (checkpointer off, nothing stored or restored,
+    one recompute per preemption); the flash kernel launched
+    (self + cross) x prefill dispatches + cross x decode dispatches + (cross
+    layers per segment) x segment dispatches, the cross calls being the
+    non-causal ones, and no other kernel; the dispatches reading nothing
+    back."""
+    eng, cfg, counts, cap = res["engine"], res["cfg"], res["counts"], res["capture"]
+    d = eng.dispatches
+    pattern = [s.mixer for s in cfg.layer_pattern()]
+    n_self = cfg.num_periods * pattern.count("attn")
+    n_cross = cfg.num_periods * pattern.count("cross_attn")
+    spans = tf.segment_spans(cfg)
+    if len({pps for _lo, pps in spans}) != 1:
+        raise AssertionError(f"segments of unequal periods: {spans}")
+    per_segment = spans[0][1] * pattern.count("cross_attn")
+    want = (n_self + n_cross) * d["prefill"] + n_cross * d["decode"] + per_segment * d["segment"]
+    log(f"  flash launches = ({n_self} self + {n_cross} cross) x {d['prefill']} prefill + "
+        f"{n_cross} x {d['decode']} decode + {per_segment} x {d['segment']} segment "
+        f"dispatches = {want}; counted {counts['flash_attention']}")
+    if counts["flash_attention"] != want or d["prefill"] == 0 or d["segment"] == 0:
+        raise AssertionError("llama-3.2-vision: flash_attention launches off the formula")
+    if (cap.calls["self"] != n_self * d["prefill"]
+            or cap.calls["cross chunk"] + cap.calls["cross one query"]
+            != n_cross * (d["prefill"] + d["decode"]) + per_segment * d["segment"]):
+        raise AssertionError(f"llama-3.2-vision: flash calls by kind {cap.calls}")
+    if any(n for name, n in counts.items() if name != "flash_attention"):
+        raise AssertionError("llama-3.2-vision: a kernel other than flash_attention launched")
+    if eng.paged or eng.ckpt.enabled or not eng.recompute_only:
+        raise AssertionError("llama-3.2-vision: not the contiguous path with recompute resume")
+    if (res["preemptions"] == 0 or len(eng.recomputed) != res["preemptions"]
+            or eng.restored_blocks or len(eng.host)):
+        raise AssertionError("llama-3.2-vision: the serve did not preempt and resume by "
+                             "recompute")
+    check_reads_nothing_back(torch, tf, eng)
+
+
+def vlm_tokens(res):
+    eng = res["engine"]
+    return [(list(r.output_tokens), eng.margins[r.request_id]) for r in res["reqs"]]
+
+
+def vlm_prefill_check(torch, ops, tf, res, chunk: int = 32):
+    """Phase 12(b): the first offline request of a served fp32 engine,
+    prefilled again in chunks of ``chunk`` into a fresh cache with its image
+    at offset 0, against ``forward_full(image_embeds=...)`` over its prompt:
+    the last logits within FULL_TOL, the flash kernel launched once per
+    layer per chunk and once per layer in the forward."""
+    eng, cfg = res["engine"], res["cfg"]
+    r = res["reqs"][0]
+    toks = eng._put(r.prompt[None])
+    img = eng._put(r.image_embeds[None])
+    caches = tf.init_caches(cfg, 1, eng.ec.max_model_len, eng.dtype, eng.device)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for lo in range(0, r.prompt_len, chunk):
+        logits, _ = tf.prefill_chunk(cfg, eng.params, toks[:, lo:lo + chunk], caches, [lo],
+                                     image_embeds=img if lo == 0 else None)
+    torch.cuda.synchronize()
+    chunk_launches = ops.launch_counts()["flash_attention"]
+    ops.reset_launch_counts()
+    full, _, _ = tf.forward_full(cfg, eng.params, toks, image_embeds=img)
+    torch.cuda.synchronize()
+    full_launches = ops.launch_counts()["flash_attention"]
+    want = full[0, -1]
+    err = (logits[0] - want).abs().max().item()
+    chunks = -(-r.prompt_len // chunk)
+    log(f"  {cfg.name} {cfg.num_layers} layers fp32, one request's {r.prompt_len} prompt "
+        f"tokens in {chunks} chunks of {chunk}, image at offset 0: last logits vs "
+        f"forward_full(image_embeds) max_abs_err={err:.3e} (|logits| max "
+        f"{want.abs().max().item():.3f}; tolerance {FULL_TOL}); argmax {int(logits[0].argmax())} "
+        f"vs {int(want.argmax())}; flash launches {chunk_launches} chunked, {full_launches} "
+        "forward_full")
+    if chunk_launches != cfg.num_layers * chunks or full_launches != cfg.num_layers:
+        raise AssertionError("VLM prefill: flash_attention not launched once per layer and call")
+    if not torch.isfinite(logits).all() or not torch.allclose(logits[0], want, **FULL_TOL):
+        raise AssertionError("VLM prefill in chunks disagrees with forward_full")
+
+
+def vlm_fp32_legs(torch, ops, serve_mod, tf):
+    """Phase 12(b): the VLM at fp32 and VLM_FP32_LAYERS layers, phase
+    12(a)'s workload and images: a preempted run's tokens (recompute at
+    each resume, the cross K/V rebuilt from the image) against an
+    uninterrupted run's (a pool of 2048 blocks), and the safepoint-segmented
+    decode's against the plain decode's (``--no-safepoints``), up to the
+    first near-tie; then ``vlm_prefill_check`` on the uninterrupted
+    engine."""
+    argv32 = fp32_argv(VLM_ARGV)
+    if VLM_FP32_LAYERS != 40:
+        argv32 += ["--layers", str(VLM_FP32_LAYERS)]
+        log(f"  fp32 legs cut to {VLM_FP32_LAYERS} of 40 layers")
+    runs = {}
+    for name, extra in (("segmented preempted", []), ("plain preempted", ["--no-safepoints"]),
+                        ("uninterrupted", ["--num-device-blocks", "2048"])):
+        t0 = time.perf_counter()
+        res = vlm_serve(torch, ops, serve_mod, argv32 + extra)
+        eng = res["engine"]
+        log(f"  fp32 {name}: preemptions={res['preemptions']} steps={eng.steps} segment "
+            f"dispatches={eng.dispatches['segment']} {time.perf_counter() - t0:.1f} s")
+        runs[name] = (res["preemptions"], vlm_tokens(res), eng.dispatches["segment"])
+        if name == "uninterrupted":
+            vlm_prefill_check(torch, ops, tf, res)
+        del res, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if (runs["segmented preempted"][0] == 0 or runs["plain preempted"][0] == 0
+            or runs["uninterrupted"][0] != 0 or runs["segmented preempted"][2] == 0
+            or runs["plain preempted"][2] != 0):
+        raise AssertionError("phase 12: the fp32 legs did not contrast preempted and "
+                             "uninterrupted, segmented and plain decodes")
+    compare_runs("llama-3.2-vision preempted vs uninterrupted", runs["segmented preempted"][1],
+                 runs["uninterrupted"][1])
+    compare_runs("llama-3.2-vision segmented vs plain decode", runs["segmented preempted"][1],
+                 runs["plain preempted"][1])
+
+
+def hubert_check(torch, ops, fa, tf):
+    """Phase 12(c): hubert-xlarge at full width and depth, ``forward_full``
+    on 2 x HUBERT_FRAMES frame embeddings from the seed, bf16 then fp32,
+    the flash kernel (non-causal, D = 80) launched once per layer.  At
+    fp32: the logits against the same forward through the kernel's plain
+    version within FULL_TOL, and flipping the last frame changes the first
+    position's logits (bidirectional).  Returns the bf16 forward's flash
+    launches and a clone of its first flash call."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("hubert-xlarge")
+    log(f"  {cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} causal={cfg.causal} "
+        f"embed_inputs={cfg.embed_inputs} vocab={cfg.vocab_size}: "
+        f"{cfg.param_count() / 1e9:.3f} B parameters (param_count)")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tf.init_params(cfg, gen, dtype=dtype)
+        x = torch.randn((2, HUBERT_FRAMES, cfg.d_model), generator=gen, device="cuda").to(dtype)
+        cap = Capture(ops.flash_attention, lambda q, k, v: 0, flash_clone)
+        ops.flash_attention = cap
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, _, _ = tf.forward_full(cfg, params, x)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = ops.launch_counts()["flash_attention"]
+        finally:
+            ops.flash_attention = cap.fn
+        log(f"  {dtype} forward_full {tuple(x.shape)}: logits {tuple(logits.shape)}, flash "
+            f"launches {launches}, {seconds * 1e3:.1f} ms (host clock, first call); flash "
+            f"call q{tuple(cap.args[0].shape)} causal={cap.args[3]['causal']}")
+        if (launches != cfg.num_layers or logits.shape != (2, HUBERT_FRAMES, cfg.vocab_size)
+                or not torch.isfinite(logits).all() or cap.args[3]["causal"]):
+            raise AssertionError(f"hubert-xlarge {dtype}: forward_full launches, shape or "
+                                 "values wrong")
+        if dtype == torch.bfloat16:
+            out = {"launches": launches, "args": cap.args}
+            del params, x, logits, cap
+            torch.cuda.empty_cache()
+            continue
+        del cap
+        kernel = ops.flash_attention
+        ops.flash_attention = lambda q, k, v, **kw: fa.flash_attention_ref(q, k, v, **kw)
+        try:
+            plain, _, _ = tf.forward_full(cfg, params, x)
+        finally:
+            ops.flash_attention = kernel
+        err = (logits - plain).abs().max().item()
+        x2 = x.clone()
+        x2[:, -1] *= -1.0
+        flipped, _, _ = tf.forward_full(cfg, params, x2)
+        moved = (logits[:, 0] - flipped[:, 0]).abs().max().item()
+        log(f"  fp32 logits kernel vs plain max_abs_err={err:.3e} (|logits| max "
+            f"{plain.abs().max().item():.3f}; tolerance {FULL_TOL}); flipping the last frame "
+            f"moves the first position's logits by {moved:.3e}")
+        if not torch.allclose(logits, plain, **FULL_TOL):
+            raise AssertionError("hubert-xlarge: kernel path disagrees with the plain path")
+        if not moved > 1e-6:
+            raise AssertionError("hubert-xlarge: the encoder is not bidirectional")
+        del params, x, x2, logits, plain, flipped
+        torch.cuda.empty_cache()
+    return out
+
+
+def vlm_phase(torch, ops, fa, serve_mod, tf, build, builds, spec, timer, line):
+    """Phase 12: (a) llama-3.2-vision-11b at full width and depth, bf16, its
+    serve checked and its decode step profiled; (b) its fp32 legs;
+    (c) hubert-xlarge's ``forward_full``; (d) the flash entry's
+    ``head_dim_80`` and ``cross_attention``."""
+    from repro_torch.configs import get_config
+
+    for arch in ("llama-3.2-vision-11b", "hubert-xlarge"):
+        n = get_config(arch).param_count()
+        log(f"  {arch}: {n / 1e9:.3f} B parameters (param_count) = {2 * n / 1e9:.1f} GB bf16, "
+            f"{4 * n / 1e9:.1f} GB fp32")
+    free, total = torch.cuda.mem_get_info()
+    log(f"  card memory: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB")
+    log("[12a] llama-3.2-vision-11b at full width and depth, bf16, contiguous path, "
+        "each request with its own image")
+    torch.cuda.reset_peak_memory_stats()
+    res = vlm_serve(torch, ops, serve_mod, VLM_ARGV)
+    check_vlm_serve(torch, tf, res)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    eng, cap, serve_counts = res["engine"], res["capture"], res["counts"]
+    profile_steps(torch, eng, op_names=("aten::cat",), top_ops=True)
+    every = time_decode_stacking(torch, eng, n=8)
+    cross = time_decode_stacking(torch, eng, n=8, names=("ck", "cv"))
+    log(f"  the cross K/V's share of stacking 8 caches: {cross / every:.1%} (host clock)")
+    cross_args, cap_calls = cap.args, dict(cap.calls)
+    del res, eng, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[12b] llama-3.2-vision-11b at fp32 and {VLM_FP32_LAYERS} layers: preempted vs "
+        "uninterrupted, segmented vs plain decode, chunked prefill vs forward_full")
+    vlm_fp32_legs(torch, ops, serve_mod, tf)
+
+    log(f"[12c] hubert-xlarge forward_full at full width and depth on 2 x {HUBERT_FRAMES} frames")
+    hubert = hubert_check(torch, ops, fa, tf)
+
+    log("[12d] flash_attention at head dim 80 and at the VLM's cross-attention calls")
+    d80 = {"case": f"hubert-xlarge forward_full (2, {HUBERT_FRAMES}) non-causal",
+           **flash_entry(torch, fa, hubert["args"], spec, timer)}
+    log(f"  flash_attention, {d80['case']}: {d80}")
+    calls = []
+    for kind, what in (("cross chunk", "heaviest cross-attention prefill chunk"),
+                       ("cross one query", "largest cross-attention decode batch")):
+        entry = {"case": f"{what} of the bf16 serve",
+                 **flash_entry(torch, fa, cross_args[kind], spec, timer)}
+        log(f"  flash_attention, {entry['case']}: {entry}")
+        calls.append(entry)
+    build80 = {}
+    for inst, r in builds.get("flash_attention", {}).items():
+        m = re.search(r"(_tc_kernel<|<float, )80>", inst)
+        if m:
+            r["dynamic_smem"] = smem_bytes(build, "flash_attention", int(m[1] == "_tc_kernel<"), 80)
+            build80[inst] = r
+    log(f"  ptxas, D = 80: {build80}")
+    entry = next(e for e in line if e["name"] == "flash_attention")
+    entry["head_dim_80"] = {"arch": "hubert-xlarge", "launches_forward_full": hubert["launches"],
+                            **d80, "build": build80}
+    entry["cross_attention"] = {"arch": "llama-3.2-vision-11b",
+                                "launches_serve": serve_counts["flash_attention"],
+                                "calls_serve": cap_calls, "calls": calls}
+
+
 def launch_cost_us(torch, n: int = 20000) -> float:
     """Host time per launch of a small elementwise kernel (a chain of ``n``
     adds on a 256 x 256 tensor, then a synchronisation): what the host
@@ -2854,6 +3259,16 @@ def main() -> int:
     t11 = time.perf_counter()
     recurrent_phase(torch, ops, fa, serve_mod, tf, spec, timer, line)
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    log("[12] the last two families: llama-3.2-vision-11b (cross-attention), "
+        "hubert-xlarge (encoder)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  before phase 12: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    t12 = time.perf_counter()
+    vlm_phase(torch, ops, fa, serve_mod, tf, build, builds, spec, timer, line)
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
     log(f"  card: {smi}; bound at {spec.name} peaks (hbm {spec.hbm_bw / 1e12:.2f} TB/s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -12,6 +12,8 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "command-r-plus-104b": "command_r_plus_104b",
+    "hubert-xlarge": "hubert_xlarge",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "mixtral-8x22b": "mixtral_8x22b",
     "qwen2-0.5b": "qwen2_0_5b",
     "yi-34b": "yi_34b",

@@ -19,7 +19,8 @@
 // Shared K, V and q rows are D bf16 plus a 16-byte pad (kRowPad): the 8
 // rows that one ldmatrix phase reads then start 16 bytes apart modulo 128,
 // on 8 different bank groups, so ldmatrix has no bank conflicts at D = 64,
-// 128 or 256.
+// 128 or 256; at D = 80 (rows of 176 bytes) they start 48 bytes apart
+// modulo 128, on 8 different groups again.
 //
 // The one rounding this adds to the plain version's arithmetic is P to
 // bf16 before P V (l sums the fp32 probabilities); scores, the softmax and

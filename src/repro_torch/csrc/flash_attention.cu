@@ -59,7 +59,14 @@
 // holds a 2 x 8 block of the 64 x 64 score tile and 2 rows x D/8 columns of
 // the accumulator in registers; the 8 lanes that share a row reduce its max
 // and sum with shuffles, and the probabilities go through shared memory to
-// the P V product.
+// the P V product.  A row's D / 4 four-float chunks go round the 8 lanes:
+// at D = 80 (20 chunks) lanes 0-3 take three and lanes 4-7 two.
+//
+// Head dims: 64, 128, 256 and 80 (hubert-xlarge's encoder, non-causal).
+// D = 80 needs nothing else of the bf16 kernel: its 5 16-deep chunks and
+// 10 8-wide column tiles are whole, and its shared rows of 88 bf16 (176
+// bytes, 44 words) start 12 words apart modulo 32, so the 8 rows of an
+// ldmatrix phase still fall on 8 distinct 4-bank groups.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -140,8 +147,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kVec = 16 / (int)sizeof(T);        // elements per 16-byte copy
   constexpr int kChunks = D / kVec;                // 16-byte chunks per row
   constexpr int DP = row_elems<T, D>();
-  constexpr int kOutChunks = kChunks / kLanesPerRow;  // P V chunks per thread
-  constexpr int kCols = kOutChunks * kVec;             // = D / 8 columns
+  // P V chunks per thread, the last one only on the lanes it exists for
+  constexpr int kOutChunks = (kChunks + kLanesPerRow - 1) / kLanesPerRow;
+  constexpr int kCols = kOutChunks * kVec;
   constexpr int kStages = stages<T, D>();
   const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int head = blockIdx.y, b = blockIdx.z;
@@ -297,6 +305,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < kRowsPerThread; ++i) p[i] = p_s[(ty + kRowGroups * i) * kPStride + key];
 #pragma unroll
       for (int u = 0; u < kOutChunks; ++u) {
+        if (kChunks % kLanesPerRow && tx + kLanesPerRow * u >= kChunks) continue;
         float vv[kVec];
         load_vec(vs + key * DP + (tx + kLanesPerRow * u) * kVec, vv);
 #pragma unroll
@@ -319,6 +328,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     T* o = out + (((size_t)b * tq + q0 + r) * h + head) * D;
 #pragma unroll
     for (int u = 0; u < kOutChunks; ++u) {
+      if (kChunks % kLanesPerRow && tx + kLanesPerRow * u >= kChunks) continue;
       float vals[kVec];
 #pragma unroll
       for (int e = 0; e < kVec; ++e) vals[e] = acc[i][u * kVec + e] * inv;
@@ -526,6 +536,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
   return launch<T, DIM>(q, k, v, out, b, tq, tk, h, hkv, q_bstride, kv_bstride, \
                         q_offset, causal, window, scale, softcap, st)
   if (dtype == 0 && d == 64) FA_LAUNCH(float, 64);
+  if (dtype == 0 && d == 80) FA_LAUNCH(float, 80);
   if (dtype == 0 && d == 128) FA_LAUNCH(float, 128);
   if (dtype == 0 && d == 256) FA_LAUNCH(float, 256);
 #undef FA_LAUNCH
@@ -533,6 +544,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
   return launch_tc<DIM>(q, k, v, out, b, tq, tk, h, hkv, q_bstride, kv_bstride, \
                         q_offset, causal, window, scale, softcap, st)
   if (dtype == 1 && d == 64) FA_LAUNCH_TC(64);
+  if (dtype == 1 && d == 80) FA_LAUNCH_TC(80);
   if (dtype == 1 && d == 128) FA_LAUNCH_TC(128);
   if (dtype == 1 && d == 256) FA_LAUNCH_TC(256);
 #undef FA_LAUNCH_TC
@@ -543,9 +555,11 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
 // launch, in bytes (0 if there is none).
 extern "C" long long flash_attention_smem_bytes(int dtype, int d) {
   if (dtype == 0 && d == 64) return (long long)smem_bytes<float, 64>();
+  if (dtype == 0 && d == 80) return (long long)smem_bytes<float, 80>();
   if (dtype == 0 && d == 128) return (long long)smem_bytes<float, 128>();
   if (dtype == 0 && d == 256) return (long long)smem_bytes<float, 256>();
   if (dtype == 1 && d == 64) return (long long)tc_smem_bytes<64>();
+  if (dtype == 1 && d == 80) return (long long)tc_smem_bytes<80>();
   if (dtype == 1 && d == 128) return (long long)tc_smem_bytes<128>();
   if (dtype == 1 && d == 256) return (long long)tc_smem_bytes<256>();
   return 0;

@@ -20,7 +20,9 @@ from . import build
 from .ref import flash_attention_ref  # noqa: F401
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+# the head dims the kernel is built for (80: hubert-xlarge); any other D is
+# refused, never sent to the plain version
+HEAD_DIMS = (64, 80, 128, 256)
 
 
 def _lib():
@@ -54,8 +56,6 @@ def flash_attention(
     position ``q_offset + t``, key ``s`` at ``s``.  Returns (B, Tq, H, D) in
     the dtype of ``q``.  ``flash_attention.launches`` counts the launches."""
     tensors = (q, k, v)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q/k/v must share float32 or bfloat16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -68,6 +68,8 @@ def flash_attention(
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if q_offset < 0 or sliding_window < 0:
         raise ValueError("flash_attention: q_offset and sliding_window must be >= 0")
     if not all(_rows_contiguous(t) for t in tensors) or (b > 1 and k.stride(0) != v.stride(0)):

@@ -14,9 +14,13 @@ of the arch's layer pattern) at either width, for a model whose weights do
 not fit the card at full depth; ``--chunk-size`` sets the prefill chunk.
 
 ``--arch`` takes every config of ``repro_torch.configs``.  Sliding-window
-(mixtral-8x22b), SSM (mamba2-1.3b) and hybrid (jamba-1.5-large-398b) archs
-serve on the contiguous path only: ``--backend auto`` resolves to it, and
-``--backend paged`` and ``--tp 2`` refuse them.
+(mixtral-8x22b), SSM (mamba2-1.3b), hybrid (jamba-1.5-large-398b) and VLM
+(llama-3.2-vision-11b) archs serve on the contiguous path only: ``--backend
+auto`` resolves to it, and ``--backend paged`` and ``--tp 2`` refuse them.
+The VLM serves text requests without images (zero cross-attention K/V), as
+the reference's serve does.  An encoder (hubert-xlarge) has no serving
+path: the launcher exits with the engine's refusal
+(``real_engine.check_servable``).
 
 * ``real``: a ``Frontend`` in front of the engine; online streams and one
   offline batch job are submitted from this thread between engine steps,
@@ -46,6 +50,8 @@ Examples:
       --arch mamba2-1.3b
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full \
       --arch mixtral-8x22b --layers 8 --chunk-size 512
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode real --full \
+      --arch llama-3.2-vision-11b
   PYTHONPATH=src python -m repro_torch.launch.serve --mode wallclock --full \
       --duration 20 --rate 2 --offline 16 --metrics-port 9400
   PYTHONPATH=src python -m repro_torch.launch.serve --mode wallclock \
@@ -453,6 +459,13 @@ def main_wallclock(args) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    from ..configs import get_config
+    from ..serving.real_engine import check_servable
+
+    try:
+        check_servable(get_config(args.arch))
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}") from None
     if args.mode == "wallclock":
         main_wallclock(args)
         return

@@ -2,8 +2,9 @@
 
 Counterparts of ``src/repro/models/layers.py``: rmsnorm, split-half RoPE,
 the QKV / output projections, the MLP, the full-sequence attention, the
-contiguous KV cache and its cached attention, the fused ragged paged
-attention, and the split path's paged prefill and decode attention.
+VLM's cross-attention over static image K/V, the contiguous KV cache and
+its cached attention, the fused ragged paged attention, and the split
+path's paged prefill and decode attention.
 Layouts are the reference's, so tests compare like with like:
 activations (B, T, d_model), projections ``wq (d, H, hd)``, ``wo (H, hd, d)``,
 contiguous caches (B, C, Hkv, D), paged pools (num_blocks, block_size, Hkv, D).
@@ -145,14 +146,14 @@ def dense_attention(
     x: torch.Tensor,  # (B, T, d_model)
     positions: torch.Tensor,  # (B, T), 0..T-1 on every row
 ) -> torch.Tensor:
-    """Full-sequence self-attention (``forward_full``).  The attention runs
+    """Full-sequence self-attention (``forward_full``), causal or, for an
+    encoder (``cfg.causal`` False), bidirectional.  The attention runs
     through ``kernels.ops.flash_attention`` at every length: the flash
     kernel on CUDA, its plain version on the CPU.  (The reference switches
     to its blockwise jnp form above 1024 tokens and notes that the Pallas
     flash kernel replaces it on the TPU; the port keeps no second plain
     version.)  Queries and keys sit at positions 0..T-1, as ``forward_full``
-    builds them; cross-attention (``kv_src``) belongs to ROADMAP Queue 1,
-    the contiguous fallback's other archs."""
+    builds them; the reference's ``kv_src`` is ``cross_attention``'s."""
     q, k, v = project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -161,6 +162,38 @@ def dense_attention(
         logit_softcap=cfg.logit_softcap,
     )
     return out_proj(p, attn)
+
+
+def cross_attention(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, T, d_model) text
+    cross_k: torch.Tensor,  # (B, P, Hkv, D) from project_cross_kv
+    cross_v: torch.Tensor,
+) -> torch.Tensor:
+    """VLM cross-attention: q from the text (no RoPE), the static image K/V,
+    no mask.  Every call, prefill chunk or decode step, runs through
+    ``kernels.ops.flash_attention`` with ``causal=False``: the flash kernel
+    on CUDA, its plain version on the CPU."""
+    q = _proj2d(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    attn = kernel_ops.flash_attention(q, cross_k, cross_v, causal=False,
+                                      logit_softcap=cfg.logit_softcap)
+    return out_proj(p, attn)
+
+
+def project_cross_kv(
+    cfg: ModelConfig, p: Params, img: torch.Tensor  # (B, P, d_model) projected image
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The static cross-attention K/V, computed once per request (at its
+    prefill chunk at offset 0)."""
+    k = _proj2d(img, p["wk"])
+    v = _proj2d(img, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v
 
 
 # ---------------------------------------------------------------------------

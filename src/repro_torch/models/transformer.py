@@ -19,17 +19,22 @@ The paged entry points take a tensor-parallel serving ``mesh`` (DESIGN.md
 (``init_paged_pools(mesh=...)``) and every paged layer runs its KV writes and
 attention per shard (``layers``).
 
-Causal decoder stacks run here: full or sliding-window attention, Mamba-2
-SSM mixers (``models/mamba2.py``, plain PyTorch as in the reference) and
-hybrids of the two, with a dense MLP or a Mixture-of-Experts FFN
-(``models/moe.py``: dropless on every serving entry point, capacity factor
-1.25 by default on ``forward_full`` and ``run_segment``, as in the
-reference).  Only plain causal full-attention stacks take the paged entry
-points (``supports_paged``); sliding windows keep a ring cache of
-``min(max_seq, window)`` slots and SSM mixers a ``{"ssm", "conv"}`` state
-per sequence, on the contiguous entry points only.  Cross-attention and
-VLMs, and encoders, raise ``NotImplementedError`` naming their sub-item of
-ROADMAP Queue 1 item 3, the contiguous fallback's other archs.
+Every architecture of the reference runs here: causal decoder stacks with
+full or sliding-window attention, Mamba-2 SSM mixers (``models/mamba2.py``,
+plain PyTorch as in the reference) and hybrids of the two, VLMs whose
+cross-attention layers attend over static image K/V, each with a dense MLP
+or a Mixture-of-Experts FFN (``models/moe.py``: dropless on every serving
+entry point, capacity factor 1.25 by default on ``forward_full`` and
+``run_segment``, as in the reference); and bidirectional encoders
+(``causal=False``) over precomputed frame embeddings (``embed_inputs=False``)
+through ``forward_full``.  Only plain causal full-attention stacks take the
+paged entry points (``supports_paged``); sliding windows keep a ring cache
+of ``min(max_seq, window)`` slots, SSM mixers a ``{"ssm", "conv"}`` state
+and cross-attention layers a ``{"ck", "cv"}`` image K/V per sequence, on
+the contiguous entry points only.  A VLM's image embeds enter at
+``forward_full`` or at a sequence's first ``prefill_chunk`` (offset 0),
+which writes each cross layer's K/V into its cache; later chunks, decode
+steps and segments read them from there.
 """
 from __future__ import annotations
 
@@ -40,25 +45,25 @@ import torch
 
 from ..distributed import sharding
 from . import mamba2, moe
-from .config import FFN_MOE, MIXER_ATTN, MIXER_MAMBA, ModelConfig
+from .config import FFN_MOE, MIXER_ATTN, MIXER_CROSS_ATTN, MIXER_MAMBA, ModelConfig
 from .layers import (
     KVCache,
     RaggedMeta,
     apply_rope,
     cached_attention,
+    cross_attention,
     dense_attention,
     mlp,
     paged_decode_attention,
     paged_prefill_attention,
     paged_ragged_attention,
+    project_cross_kv,
     project_qkv,
     rmsnorm,
     write_kv,
 )
 
 PyTree = Any
-# where the refusals of the other architectures point
-ARCHS_ITEM = "ROADMAP Queue 1: the contiguous fallback's other archs"
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -72,19 +77,6 @@ def supports_paged(cfg: ModelConfig) -> bool:
     )
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet,
-    naming its ROADMAP item."""
-    if cfg.cross_attn_period or cfg.vision_dim:
-        what, item = "cross-attention and image embeds (llama-3.2-vision)", "3.5"
-    elif not cfg.causal or not cfg.embed_inputs:
-        what, item = "the encoder branch (hubert)", "3.6"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} are not ported yet ({ARCHS_ITEM}, item {item})")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -95,8 +87,11 @@ def init_params(
 ) -> PyTree:
     """Random weights with the reference's shapes, scales and stacking, drawn
     from ``generator`` on its device (``torch.Generator`` draws differ from
-    ``jax.random``: tests share weights through ``repro_torch.bridge``)."""
-    _check_supported(cfg)
+    ``jax.random``: tests share weights through ``repro_torch.bridge``).
+    As in the reference: no ``embed`` for precomputed input embeddings
+    (``embed_inputs=False``), an ``lm_head`` unless the embeddings are tied
+    and exist, a ``vision_proj (vision_dim, d)`` for image embeds, and a
+    cross-attention layer's mixer shaped as a self-attention one's."""
     dev = generator.device
 
     def normal(shape, scale):
@@ -111,12 +106,14 @@ def init_params(
 
     d, hd, P = cfg.d_model, cfg.resolved_head_dim, cfg.num_periods
     h, hkv, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
-    params: Dict[str, PyTree] = {
-        "embed": normal((cfg.vocab_size, d), 0.02),
-        "final_norm": ones((d,)),
-    }
-    if not cfg.tie_embeddings:
+    params: Dict[str, PyTree] = {}
+    if cfg.embed_inputs:
+        params["embed"] = normal((cfg.vocab_size, d), 0.02)
+    params["final_norm"] = ones((d,))
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
         params["lm_head"] = normal((d, cfg.vocab_size), d**-0.5)
+    if cfg.vision_dim:
+        params["vision_proj"] = normal((cfg.vision_dim, d), cfg.vision_dim**-0.5)
     layers = {}
     for i, spec in enumerate(cfg.layer_pattern()):
         if spec.mixer == MIXER_MAMBA:
@@ -216,17 +213,21 @@ def init_caches(
     (P, B, C), -1 for empty slots, with C = ``cache_capacity`` (a ring of
     the window's slots for a sliding window).  Mamba: ``"ssm"`` (P, B, nh,
     hd, dstate) fp32 and ``"conv"`` (P, B, W - 1, channels) in ``dtype``,
-    zero."""
-    _check_supported(cfg)
+    zero.  Cross-attention: ``"ck"``, ``"cv"`` (P, B, num_image_tokens, Hkv,
+    D), zero until a first chunk with image embeds writes them."""
     caches = {}
     cap = cache_capacity(cfg, max_seq)
+    hd = cfg.resolved_head_dim
     for i, spec in enumerate(cfg.layer_pattern()):
         if spec.mixer == MIXER_MAMBA:
             st = mamba2.zero_state(cfg, batch, dtype, device)
             one = {"ssm": st.ssm, "conv": st.conv}
+        elif spec.mixer == MIXER_CROSS_ATTN:
+            shape = (batch, cfg.num_image_tokens, cfg.num_kv_heads, hd)
+            one = {"ck": torch.zeros(shape, dtype=dtype, device=device),
+                   "cv": torch.zeros(shape, dtype=dtype, device=device)}
         else:
-            one = KVCache.init(batch, cap, cfg.num_kv_heads, cfg.resolved_head_dim,
-                               dtype, device)
+            one = KVCache.init(batch, cap, cfg.num_kv_heads, hd, dtype, device)
         caches[str(i)] = {
             k: v[None].repeat((cfg.num_periods,) + (1,) * v.ndim) for k, v in one.items()
         }
@@ -239,8 +240,19 @@ def init_caches(
 
 
 def embed(cfg: ModelConfig, params: PyTree, inputs: torch.Tensor) -> torch.Tensor:
-    """tokens (B, T) int -> (B, T, d)."""
-    return params["embed"][inputs.long()]
+    """tokens (B, T) int -> (B, T, d); precomputed embeddings (B, T, d) pass
+    through (``embed_inputs=False``)."""
+    if cfg.embed_inputs:
+        return params["embed"][inputs.long()]
+    return inputs
+
+
+def project_image_embeds(cfg: ModelConfig, params: PyTree,
+                         image_embeds: torch.Tensor) -> torch.Tensor:
+    """(B, P, vision_dim) stubbed-frontend patches -> (B, P, d), in the
+    weights' dtype."""
+    proj = params["vision_proj"]
+    return image_embeds.to(proj.dtype) @ proj
 
 
 def lm_head(cfg: ModelConfig, params: PyTree, x: torch.Tensor) -> torch.Tensor:
@@ -316,6 +328,7 @@ def run_periods(
     mesh=None,  # tensor-parallel serving mesh (paged only)
     capacity_factor: float = 1.25,  # MoE layers; <= 0: dropless
     aux_out: Optional[List[torch.Tensor]] = None,  # MoE layers' aux losses, appended
+    img_x: Optional[torch.Tensor] = None,  # (B, P, d) projected image embeds
 ) -> torch.Tensor:
     """Periods [lo, lo + num) of the stack; returns x.
 
@@ -327,7 +340,10 @@ def run_periods(
     ``decode`` attend through the caches (``cached_attention``).  A Mamba
     layer runs ``mamba_full`` from its carried state (zeros without caches)
     on ``full`` and ``prefill``, ``mamba_decode_step`` on ``decode``, and
-    writes the new state into its caches in place.  A MoE layer routes every
+    writes the new state into its caches in place.  A cross-attention layer
+    projects its K/V from ``img_x`` when given (writing them into its caches
+    in place, when there are caches), else reads them from its caches, and
+    attends over them (``cross_attention``).  A MoE layer routes every
     row, padded ones too, with ``capacity_factor``."""
     paged = block_tables is not None
     if paged and not supports_paged(cfg):
@@ -353,6 +369,18 @@ def run_periods(
                 if cache is not None:
                     cache["ssm"].copy_(state.ssm)
                     cache["conv"].copy_(state.conv)
+            elif spec.mixer == MIXER_CROSS_ATTN:
+                if img_x is not None:  # the first chunk or a full pass
+                    ck, cv = project_cross_kv(cfg, lp["mixer"], img_x)
+                    if cache is not None:
+                        cache["ck"].copy_(ck)
+                        cache["cv"].copy_(cv)
+                elif cache is not None:
+                    ck, cv = cache["ck"], cache["cv"]
+                else:
+                    raise ValueError(f"{cfg.name}: cross-attention needs image embeds "
+                                     "or caches that hold their K/V")
+                mix = cross_attention(cfg, lp["mixer"], h, ck, cv)
             elif paged and mode == "ragged":
                 mix, _ = paged_ragged_attention(
                     cfg, lp["mixer"], h, cache, block_tables, positions, meta, mesh
@@ -396,7 +424,6 @@ def run_tokens_paged(
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """Whole-stack fused mixed-batch forward. Returns ((S, V) logits, pools);
     the pools are the argument, updated in place."""
-    _check_supported(cfg)
     x = embed(cfg, params, tokens[None])
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
                     constrain_paged_pools(pools, mesh), block_tables, positions[None],
@@ -446,7 +473,6 @@ def prefill_chunk_paged(
     row's ``last_index`` token, or of its last token, and the pools, updated
     in place).  Padded positions write junk KV only into slots rewritten
     before they are read, into the scratch row, or past the table (dropped)."""
-    _check_supported(cfg)
     x = embed(cfg, params, tokens)
     b, l = tokens.shape
     positions = offsets[:, None] + torch.arange(l, dtype=offsets.dtype,
@@ -472,7 +498,6 @@ def decode_step_paged(
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """One decode iteration on the paged layout.  Returns ((B, V) logits,
     pools updated in place)."""
-    _check_supported(cfg)
     x = embed(cfg, params, last_tokens[:, None])
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x,
                     constrain_paged_pools(pools, mesh), block_tables, seq_lens[:, None],
@@ -525,8 +550,9 @@ def run_segment_paged(
 def forward_full(
     cfg: ModelConfig,
     params: PyTree,
-    inputs: torch.Tensor,  # (B, T) tokens
+    inputs: torch.Tensor,  # (B, T) tokens, or (B, T, d) embeddings (embed_inputs=False)
     *,
+    image_embeds: Optional[torch.Tensor] = None,  # (B, P, vision_dim)
     emit_caches: bool = False,
     max_seq: Optional[int] = None,
     capacity_factor: float = 1.25,
@@ -536,11 +562,13 @@ def forward_full(
     capacity ``max_seq or T`` holding the sequence when ``emit_caches``,
     else None, and the auxiliary loss: the MoE layers' router losses summed,
     0 for a dense stack).  Every layer's attention is the flash attention
-    over the whole sequence (the kernel on CUDA)."""
-    _check_supported(cfg)
+    over the whole sequence (the kernel on CUDA), causal or, for an encoder,
+    not; a cross-attention layer attends over ``image_embeds``' K/V (a VLM
+    without them needs ``emit_caches``: zero K/V, as in the reference)."""
     x = embed(cfg, params, inputs)
-    b, t = inputs.shape
+    b, t = x.shape[:2]
     positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    img_x = None if image_embeds is None else project_image_embeds(cfg, params, image_embeds)
     caches = (
         init_caches(cfg, b, max_seq or t, cache_dtype or x.dtype, x.device)
         if emit_caches else None
@@ -548,7 +576,7 @@ def forward_full(
     auxes: List[torch.Tensor] = []
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
                     positions, mode="full", capacity_factor=capacity_factor,
-                    aux_out=auxes)
+                    aux_out=auxes, img_x=img_x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in auxes:
         aux = aux + a
@@ -573,6 +601,7 @@ def prefill_chunk(
     offsets: Sequence[int],  # (B,) host ints: tokens already prefilled per row
     *,
     lengths: Optional[torch.Tensor] = None,  # (B,) valid tokens in this chunk
+    image_embeds: Optional[torch.Tensor] = None,  # (B, P, vision_dim), at offset 0
 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
     """Chunked prefill on contiguous caches.  Returns ((B, V) logits of each
     row's last valid token, caches updated in place).  ``offsets`` are host
@@ -580,19 +609,22 @@ def prefill_chunk(
     and the flash kernel's ``q_offset`` needs them without a read-back.
     Mamba layers refuse padded chunks (``lengths``), as in the reference:
     padding would run through the recurrent state, so the engine prefills
-    SSM sequences unpadded, one per dispatch."""
-    _check_supported(cfg)
+    SSM sequences unpadded, one per dispatch.  ``image_embeds``, given with
+    a sequence's first chunk, write its cross-attention layers' K/V into
+    the caches (the engine passes them at offset 0 only, as the
+    reference's does)."""
     if lengths is not None and cfg.has_ssm_state:
         raise ValueError("ragged chunked prefill unsupported for SSM layers")
     x = embed(cfg, params, tokens)
-    b, l = tokens.shape
+    b, l = x.shape[:2]
     positions = _chunk_positions(offsets, l, x.device)
+    img_x = None if image_embeds is None else project_image_embeds(cfg, params, image_embeds)
     valid = None
     if lengths is not None:
         valid = torch.arange(l, device=x.device)[None, :] < lengths[:, None]
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
                     positions, mode="prefill", valid=valid, q_offsets=offsets,
-                    capacity_factor=-1.0)
+                    capacity_factor=-1.0, img_x=img_x)
     if lengths is None:
         xl = x[:, -1:, :]
     else:
@@ -611,7 +643,6 @@ def decode_step(
     """One decode iteration on contiguous caches (plain masked attention
     over the cache, as in the reference).  Returns ((B, V) logits, caches
     updated in place)."""
-    _check_supported(cfg)
     x = embed(cfg, params, last_tokens[:, None])
     x = run_periods(cfg, params["layers"], 0, cfg.num_periods, x, caches, None,
                     seq_lens[:, None], mode="decode", capacity_factor=-1.0)

@@ -9,9 +9,10 @@ oracle), on one device or over a tensor-parallel serving mesh (``mesh``),
 and the contiguous per-request caches (``backend="contiguous"``); serial,
 or on the fused paged path pipelined (``pipeline=True``).  Causal full
 attention stacks (dense or Mixture-of-Experts FFN) run on every path;
-sliding-window (ring caches), SSM and hybrid stacks on the contiguous path
-only, and they resume a preempted request by recompute.  Cross-attention
-and encoder archs raise ``NotImplementedError`` naming their ROADMAP item.
+sliding-window (ring caches), SSM, hybrid and VLM (cross-attention over
+each request's ``image_embeds``) stacks on the contiguous path only, and
+they resume a preempted request by recompute.  Encoder archs are refused
+(``check_servable``): the reference's engine cannot serve them either.
 
 * Physical KV layout: shared pools ``(num_periods, num_device_blocks + 1,
   block_size, Hkv, D)`` per pattern position, updated in place; the last
@@ -225,6 +226,20 @@ class _StagedBatch:
     inputs: tuple
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for an arch no serving path takes: an encoder
+    (``causal=False`` or ``embed_inputs=False``).  Its entry point is
+    ``transformer.forward_full`` on frame embeddings.  The reference's engine
+    passes a request's token ids to its ``forward_full`` and fails, and a
+    ``Request`` carries no frame embeddings (ROADMAP Queue 3)."""
+    if not cfg.causal or not cfg.embed_inputs:
+        raise ValueError(
+            f"{cfg.name}: an encoder (causal={cfg.causal}, embed_inputs={cfg.embed_inputs}) "
+            "has no serving path; the reference's RealEngine passes token ids to "
+            "forward_full, which needs frame embeddings a Request does not carry "
+            "(ROADMAP Queue 3); run transformer.forward_full instead")
+
+
 class RealEngine:
     def __init__(
         self,
@@ -241,10 +256,7 @@ class RealEngine:
             raise ValueError(f"unknown backend {eng_cfg.backend!r}")
         if eng_cfg.backend == "paged" and not tf.supports_paged(cfg):
             raise ValueError(f"{cfg.name}: arch cannot run the paged backend")
-        # cross-attention and encoder archs fall back to the contiguous
-        # layout in the reference and raise here, naming their item of
-        # ROADMAP Queue 1, the contiguous fallback's other archs
-        tf._check_supported(cfg)
+        check_servable(cfg)
         self.paged = eng_cfg.backend == "paged" or (
             eng_cfg.backend == "auto" and tf.supports_paged(cfg))
         self.pipeline = bool(eng_cfg.pipeline)
@@ -274,7 +286,7 @@ class RealEngine:
             # params replicate: one copy per distinct device, shard 0's leads
             self.shard_params = bridge.replicate(params, self.mesh.devices)
             self.params = self.shard_params[0]
-        self.dtype = self.params["embed"].dtype
+        self.dtype = self.params["final_norm"].dtype
         self.ec = eng_cfg
         self.fused = self.paged and eng_cfg.fused_batch
         self.sampling = sampling
@@ -305,12 +317,12 @@ class RealEngine:
         self.sched = UnifiedScheduler(cfg, lat, slo, self.blocks, sched_cfg)
 
         # KV-block checkpoint/restore is exact for plain causal attention;
-        # SSM state and ring caches smaller than max_model_len resume by full
-        # recompute instead (the reference's ckpt_ok, DESIGN.md §4)
+        # SSM state, cross-attention K/V and ring caches smaller than
+        # max_model_len resume by full recompute instead (the reference's
+        # ckpt_ok, DESIGN.md §4)
         self.recompute_only = (
             cfg.has_ssm_state
             or bool(cfg.cross_attn_period)
-            or not cfg.causal
             or tf.cache_capacity(cfg, eng_cfg.max_model_len) != eng_cfg.max_model_len
         )
         if self.recompute_only and sched_cfg.swap_on_preempt:
@@ -1246,22 +1258,21 @@ class RealEngine:
     # ------------------------------------------------ contiguous fallback
     def _prefill_contiguous(self, plan, tokens: Dict[int, int]) -> None:
         """Per-request prefill chunks on the contiguous layout: one
-        ``prefill_chunk`` dispatch per chunk, against the request's cache."""
+        ``prefill_chunk`` dispatch per chunk, against the request's cache.
+        A VLM request's ``image_embeds`` go with its chunk at offset 0 (a
+        resume's recompute too, into a fresh cache), as in the reference."""
         for chunk in plan.prefill_chunks:
             r = chunk.request
             rid = r.request_id
-            if not self.cfg.causal:
-                # the reference runs an encoder job as one forward_full
-                raise NotImplementedError(
-                    f"encoder prefill is not ported yet ({tf.ARCHS_ITEM})"
-                )
             toks = self._tokens_of(r)[chunk.offset : chunk.offset + chunk.length]
             if rid not in self.caches:
                 self.caches[rid] = self._fresh_cache(r)
+            img = r.image_embeds if chunk.offset == 0 else None
             self.dispatches["prefill"] += 1
             logits, _ = tf.prefill_chunk(
                 self.cfg, self.params, self._put(toks[None]), self.caches[rid],
                 [chunk.offset],
+                image_embeds=None if img is None else self._put(np.asarray(img)[None]),
             )
             if chunk.offset + chunk.length == r.kv_target and r.num_generated == 0:
                 self._sample(logits, [r], tokens)

@@ -11,9 +11,9 @@ packages compute with the same weights (the reference's
 and the same numpy inputs, at fp32, through the fused, split and
 contiguous entry points and ``forward_full``; ``RealEngine`` emits the
 reference engine's greedy tokens on a preemption case, also at tp 2 for
-olmoe.  The families still to port (cross-attention, encoders) raise,
-naming their ROADMAP item; the SSM, hybrid and sliding-window archs are
-held to the reference in ``tests/test_torch_recurrent.py``.
+olmoe.  The SSM, hybrid and sliding-window archs are held to the reference
+in ``tests/test_torch_recurrent.py``, the VLM and the encoder in
+``tests/test_torch_vlm.py`` and ``tests/test_torch_encoder.py``.
 """
 import dataclasses
 import functools
@@ -36,7 +36,6 @@ from repro_torch.configs import get_config as get_config_t  # noqa: E402
 from repro_torch.core.profiler import AnalyticalCostModel, HardwareSpec  # noqa: E402
 from repro_torch.core.request import Priority as PriorityT, Request as RequestT  # noqa: E402
 from repro_torch.launch.mesh import make_serving_mesh  # noqa: E402
-from repro_torch.models import config as tconfig  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.serving import real_engine as engine_t  # noqa: E402
@@ -325,18 +324,6 @@ def test_olmoe_prior_and_calibration():
         prof = eng.calibrate(grid)
         assert isinstance(prof, MeasuredProfiler) and eng.sched.model is prof
         assert prof.samples and all(t > 0 for _, t in prof.samples)
-
-
-# ----------------------------------------------------------- still to port
-@pytest.mark.parametrize("arch,item", [
-    ("llama-3.2-vision-11b", "item 3.5"), ("hubert-xlarge", "item 3.6"),
-])
-def test_archs_still_to_port_raise_naming_their_item(arch, item):
-    cfg = tconfig.ModelConfig(**dataclasses.asdict(get_config(arch).reduced()))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1.*{item}"):
-        ttf.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=item):
-        engine_t.RealEngine(cfg, {}, device="cpu")
 
 
 # ------------------------------------------------------------- the launcher

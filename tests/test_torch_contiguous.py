@@ -148,15 +148,19 @@ def test_contiguous_calibration_installs_profile_and_keeps_caches():
 def test_contiguous_backend_refusals():
     """A windowed (ring-cache) arch resolves to the contiguous backend with
     the checkpointer off (it resumes by recompute), and the paged backend
-    refuses it, as in the reference; a cross-attention arch is not ported
-    on either backend."""
+    refuses it, as in the reference; so does a cross-attention arch, which
+    resolves to the contiguous backend and resumes by recompute."""
     cfg = get_config_t("llama-2-7b").reduced()
     params = bridge.to_torch(_weights("llama-2-7b")[2])
     windowed = dataclasses.replace(cfg, sliding_window=8)
     eng = engine_t.RealEngine(windowed, params, device="cpu")  # backend="auto"
     assert not eng.paged and eng.recompute_only and not eng.ckpt.enabled
-    with pytest.raises(NotImplementedError, match="Queue 1: the contiguous fallback's other archs"):
-        engine_t.RealEngine(dataclasses.replace(cfg, cross_attn_period=2), params, device="cpu")
+    cross = dataclasses.replace(cfg, cross_attn_period=2)
+    eng = engine_t.RealEngine(cross, params, device="cpu")
+    assert not eng.paged and eng.recompute_only and not eng.ckpt.enabled
+    with pytest.raises(ValueError, match="paged"):
+        engine_t.RealEngine(cross, params, device="cpu",
+                            eng_cfg=engine_t.RealEngineConfig(backend="paged"))
     with pytest.raises(ValueError, match="paged"):
         engine_t.RealEngine(windowed, params, device="cpu",
                             eng_cfg=engine_t.RealEngineConfig(backend="paged"))

@@ -191,16 +191,17 @@ def test_resumed_work_never_lands_in_the_scratch_block():
 def test_engine_refuses_what_is_not_ported():
     cfg = get_config_t("llama-2-7b").reduced()
     params = bridge.to_torch(_weights("llama-2-7b")[2])
-    # a ring cache is served on the contiguous backend, resuming by
-    # recompute; cross-attention is not ported yet
+    # a ring cache and cross-attention are served on the contiguous
+    # backend, resuming by recompute
     windowed = dataclasses.replace(cfg, sliding_window=8)
     eng = engine_t.RealEngine(windowed, params,
                               eng_cfg=engine_t.RealEngineConfig(backend="contiguous"),
                               device="cpu")
     assert eng.recompute_only and not eng.ckpt.enabled
-    with pytest.raises(NotImplementedError, match="Queue 1: the contiguous fallback's other archs"):
-        engine_t.RealEngine(dataclasses.replace(cfg, cross_attn_period=2), params,
-                            eng_cfg=engine_t.RealEngineConfig(backend="contiguous"), device="cpu")
+    eng = engine_t.RealEngine(dataclasses.replace(cfg, cross_attn_period=2), params,
+                              eng_cfg=engine_t.RealEngineConfig(backend="contiguous"),
+                              device="cpu")
+    assert not eng.paged and eng.recompute_only and not eng.ckpt.enabled
     # the pipeline runs on the fused paged backend only, as in the reference
     for kw in (dict(pipeline=True, fused_batch=False),
                dict(pipeline=True, backend="contiguous")):

@@ -484,6 +484,38 @@ def test_tensor_core_rounding_stays_inside_bf16_tol_flash_d256(case):
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
 
 
+@pytest.mark.parametrize("case", CHIP_SMOKE.FLASH_CASES + CHIP_SMOKE.CROSS_CASES,
+                         ids=lambda c: c[0])
+def test_tensor_core_rounding_stays_inside_bf16_tol_flash_d80(case):
+    """As above at hubert-xlarge's head dim of 80 (5 16-deep chunks and 10
+    column tiles per row, scale 80**-0.5), causal and non-causal, and at
+    the VLM's cross-attention calls: non-causal over 576 keys, a decode
+    batch of 12 single queries and a 32-query chunk."""
+    _, b, tq, tk, causal, window, q_offset = case
+    h, hkv, d = 2, 2, 80
+    q, k, v = _bf16((b, tq, h, d), 76), _bf16((b, tk, hkv, d), 77), _bf16((b, tk, hkv, d), 78)
+    keep = CHIP_SMOKE.flash_keep(torch, tq, tk, causal, window, q_offset)
+    got = _tensor_core_attention(q, k, v, keep.expand(b, tq, tk))
+    want = flash_attention_ref(q, k, v, causal=causal, sliding_window=window,
+                               q_offset=q_offset)
+    print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def test_flash_wrapper_refuses_other_head_dims():
+    """The kernel is built for D = 64, 80, 128 and 256; any other D (96
+    here) is refused with a ValueError before anything else is looked at,
+    never sent to the plain version.  D = 80 passes that check and stops at
+    the device (no card here)."""
+    assert flash_attention.HEAD_DIMS == (64, 80, 128, 256)
+    q = torch.zeros((1, 4, 2, 96), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 96 not in"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 2, 80), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q, q, q, causal=False)
+
+
 def _attention_case_cpu(h, hkv, d, seed, q_lens=(32, 1, 9, 1, 1, 0),
                         kv_lens=(32 + 131, 50, 9, 300, 1, 0), qmax=32, page=16):
     """chip_smoke.attention_case's ragged batch, built on the CPU from
