@@ -13,7 +13,9 @@ any failure exits non-zero before the result lines:
 1. Device: the card's name and power limit, TF32 off, kernel build time,
    and ptxas's registers, spills and static shared memory of every kernel
    instantiation (a bf16 tensor-core or split-merge kernel that spills
-   fails).
+   fails), and per flash attention instantiation its warpgroup products
+   (``HGMMA``) and TMA tile loads (``UTMALDG``) in ``cuobjdump -sass`` (a
+   bf16 flash kernel with none of either fails).
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at fp32 and bf16, at the attention shapes of ``ATTN_SHAPES``
    (Llama-2-7B, Qwen2-0.5B, gemma-7b's head dim 256, yi-34b's and
@@ -56,8 +58,13 @@ any failure exits non-zero before the result lines:
    kernel must agree with its plain version there), and for attention the
    same at contexts of 2-4 thousand tokens (``long_context``: Llama-2-7B,
    and Qwen2-0.5B decodes; for flash attention ``forward_full``'s 2048 and
-   4096 tokens), and its ptxas report per instantiation with the bf16
-   kernels' dynamic shared memory (``build``).  The decode kernel adds its
+   4096 tokens, and 4096 at llama-3.2-vision-11b's 32 / 8 heads), and its
+   ptxas report per instantiation with the bf16 kernels' dynamic shared
+   memory (``build``).  Each flash time is also logged on a line of its
+   own beside the replaced mma.sync kernel's on the same input, a figure
+   copied from PERF.md (PREVIOUS_FLASH_MS), never put in the JSON line; the
+   bf16 flash call's host cost, its three tensor maps' encoding included,
+   is its ``enqueue_ms``.  The decode kernel adds its
    key splits and split-merge launches; the gather, unchanged since it was
    ported, is also timed by the Timer of earlier runs, as the control.
 6. Calibration: ``RealEngine.calibrate()`` on a bf16 engine of each path
@@ -281,6 +288,26 @@ def ptxas_report(text: str) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(m[1]) if m else 0
     return out
+
+
+def sass_counts(build, name: str, ops=("HGMMA", "UTMALDG")) -> dict:
+    """Per kernel instantiation of ``csrc/<name>.cu``'s built library, the
+    number of SASS instructions of each of ``ops`` (``cuobjdump -sass``):
+    ``HGMMA`` is a warpgroup product (wgmma), ``UTMALDG`` a TMA tile load."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"cuobjdump failed on {name}: {out.stderr[-2000:]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(kernel_name(m[1]), dict.fromkeys(ops, 0))
+        elif cur is not None:
+            for op in ops:
+                cur[op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
 
 
 def smem_bytes(build, name: str, *args: int) -> int:
@@ -1108,6 +1135,30 @@ def long_context_entries(torch, rpa, spec, timer, shape=(32, 32, 128), qwen=True
     return ragged, decode
 
 
+# The time of the mma.sync bf16 flash kernel that the wgmma one replaced, on
+# each timed input, in ms, copied from PERF.md (row 4: its last runs on an
+# NVIDIA H100 80GB HBM3 at 700 W).  Not measured here: ``log_previous``
+# prints it beside this run's time, and no JSON line carries it.
+PREVIOUS_FLASH_MS = {
+    "llama-2-7b contiguous": 0.0136, "llama-2-7b forward_full T=2048": 0.2920,
+    "llama-2-7b forward_full T=4096": 0.9704, "gemma-7b contiguous": 0.0192,
+    "gemma-7b forward_full T=2048": 0.3844, "gemma-7b forward_full T=4096": 1.2740,
+    "forward_full T=8192 window 4096": 3.884, "heaviest mixtral ring prefill chunk": 0.3918,
+    "hubert-xlarge": 0.1785, "heaviest cross-attention prefill chunk": 0.0262,
+    "largest cross-attention decode batch": 0.0278,
+}
+
+
+def log_previous(key, entry):
+    """Logs a flash entry's time beside the replaced kernel's on the same
+    input (PREVIOUS_FLASH_MS, where it was timed)."""
+    was = PREVIOUS_FLASH_MS.get(key)
+    if was is not None:
+        log(f"  flash_attention, {key}: {entry['ms']:.5f} ms against the replaced mma.sync "
+            f"kernel's {was} ms (copied from PERF.md, not measured in this run): "
+            f"{was / entry['ms']:.2f}x faster")
+
+
 def flash_keep(torch, tq, tk, causal, window, q_offset):
     """The (Tq, Tk) mask of kept (query, key) pairs, on the CPU."""
     qp = q_offset + torch.arange(tq)[:, None]
@@ -1181,18 +1232,20 @@ def flash_entry(torch, fa, args, spec, timer):
     }
 
 
-def flash_long_entries(torch, fa, spec, timer, shape=(32, 32, 128)):
-    """The flash kernel at forward_full's shapes: one sequence of 2048 and
-    of 4096 tokens at ``shape`` (H, Hkv, D; Llama-2-7B's by default),
+def flash_long_entries(torch, fa, spec, timer, shape=(32, 32, 128), arch="llama-2-7b",
+                       ts=(2048, 4096)):
+    """The flash kernel at forward_full's shapes: one sequence of each of
+    ``ts`` tokens at ``shape`` (H, Hkv, D; Llama-2-7B's by default),
     causal, bf16."""
     out = []
     h, hkv, d = shape
-    for t in (2048, 4096):
+    for t in ts:
         q, k, v = flash_case(torch, torch.bfloat16, h, hkv, d, 1, t, t, 6, spare=0)
         kw = dict(causal=True, sliding_window=0, q_offset=0, logit_softcap=0.0)
-        entry = {"case": f"forward_full T={t}", **flash_entry(torch, fa, (q, k, v, kw),
-                                                               spec, timer)}
-        log(f"  flash_attention, forward_full T={t}: {entry}")
+        entry = {"case": f"forward_full T={t}", "arch": arch,
+                 **flash_entry(torch, fa, (q, k, v, kw), spec, timer)}
+        log(f"  flash_attention, {arch} forward_full T={t} ({h} / {hkv} heads of {d}): {entry}")
+        log_previous(f"{arch} forward_full T={t}", entry)
         out.append(entry)
         del q, k, v
     return out
@@ -1269,6 +1322,7 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
     }]
     fmain = flash_entry(torch, fa, contiguous_args["flash_attention"], spec, timer)
     log(f"  flash_attention, heaviest contiguous-path call: {fmain}")
+    log_previous("llama-2-7b contiguous", fmain)
     fshape = fmain.pop("shape")
     out.append({
         "name": "flash_attention", "route": "cuda",
@@ -1276,7 +1330,9 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
         "replaces": "src/repro/kernels/flash_attention.py:107",
         "launches": contiguous_counts["flash_attention"],
         "launches_forward_full": full_launches, **fmain, "shape": fshape,
-        "long_context": flash_long_entries(torch, fa, spec, timer),
+        "long_context": flash_long_entries(torch, fa, spec, timer)
+        + flash_long_entries(torch, fa, spec, timer, VLM_SHAPE, "llama-3.2-vision-11b",
+                             ts=(4096,)),
     })
     out.append({
         "name": "checkpoint_gather", "route": "cuda",
@@ -1327,10 +1383,10 @@ def add_build_reports(build, builds, line, ragged_args, decode_args, dims=(64, 1
         report = builds.get(name)
         entry["build"] = report if report else "not built in this run"
         for inst, r in (report or {}).items():
-            d = re.search(r"(_tc_kernel<|<float, )(\d+)", inst)
+            d = re.search(r"(_tc_kernel<|_wg_kernel<|<float, )(\d+)", inst)
             if not d or int(d[2]) not in dims:
                 continue
-            dtype, d = int(d[1] == "_tc_kernel<"), int(d[2])
+            dtype, d = int(d[1] != "<float, "), int(d[2])
             if name == "flash_attention":
                 r["dynamic_smem"] = smem_bytes(build, name, dtype, d)
             elif name == "ragged_paged_attention":
@@ -2422,10 +2478,11 @@ def head_dim_256_entries(torch, rpa, cg, fa, serves, full_launches, spec, timer,
         "library_ms": None, "long_context": long_decode}
     fmain = flash_entry(torch, fa, contiguous_args["flash_attention"], spec, timer)
     log(f"  flash_attention D=256, heaviest gemma-7b contiguous call: {fmain}")
+    log_previous("gemma-7b contiguous", fmain)
     by_name["flash_attention"]["head_dim_256"] = {
         "arch": "gemma-7b", "launches": contiguous_counts["flash_attention"],
         "launches_forward_full": full_launches, **fmain,
-        "long_context": flash_long_entries(torch, fa, spec, timer, GEMMA_SHAPE)}
+        "long_context": flash_long_entries(torch, fa, spec, timer, GEMMA_SHAPE, "gemma-7b")}
     gather = gather_entry(torch, cg, *args["checkpoint_gather"], spec, timer)
     log(f"  checkpoint_gather, gemma-7b's leaf: {gather}")
     by_name["checkpoint_gather"]["head_dim_256"] = {
@@ -2661,11 +2718,13 @@ def window_entries(torch, fa, spec, timer, ring_args):
     full = {"case": f"forward_full T={WINDOW_T} window 4096",
             **flash_entry(torch, fa, (q, k, v, kw), spec, timer)}
     log(f"  flash_attention, {full['case']}: {full}")
+    log_previous(full["case"], full)
     del q, k, v
     torch.cuda.empty_cache()
     ring = {"case": "heaviest mixtral ring prefill chunk",
             **flash_entry(torch, fa, ring_args, spec, timer)}
     log(f"  flash_attention, {ring['case']}: {ring}")
+    log_previous(ring["case"], ring)
     return [full, ring]
 
 
@@ -3044,18 +3103,20 @@ def vlm_phase(torch, ops, fa, serve_mod, tf, build, builds, spec, timer, line):
     d80 = {"case": f"hubert-xlarge forward_full (2, {HUBERT_FRAMES}) non-causal",
            **flash_entry(torch, fa, hubert["args"], spec, timer)}
     log(f"  flash_attention, {d80['case']}: {d80}")
+    log_previous("hubert-xlarge", d80)
     calls = []
     for kind, what in (("cross chunk", "heaviest cross-attention prefill chunk"),
                        ("cross one query", "largest cross-attention decode batch")):
         entry = {"case": f"{what} of the bf16 serve",
                  **flash_entry(torch, fa, cross_args[kind], spec, timer)}
         log(f"  flash_attention, {entry['case']}: {entry}")
+        log_previous(what, entry)
         calls.append(entry)
     build80 = {}
     for inst, r in builds.get("flash_attention", {}).items():
-        m = re.search(r"(_tc_kernel<|<float, )80>", inst)
+        m = re.search(r"(_wg_kernel<|<float, )80>", inst)
         if m:
-            r["dynamic_smem"] = smem_bytes(build, "flash_attention", int(m[1] == "_tc_kernel<"), 80)
+            r["dynamic_smem"] = smem_bytes(build, "flash_attention", int(m[1] != "<float, "), 80)
             build80[inst] = r
     log(f"  ptxas, D = 80: {build80}")
     entry = next(e for e in line if e["name"] == "flash_attention")
@@ -3122,10 +3183,17 @@ def main() -> int:
             log(f"    {name}: {inst}: {r}")
     for name in ("flash_attention", "ragged_paged_attention", "paged_attention"):
         spills = {inst: r for inst, r in builds.get(name, {}).items()
-                  if ("_tc_kernel" in inst or "merge_kernel" in inst)
+                  if ("_tc_kernel" in inst or "_wg_kernel" in inst or "merge_kernel" in inst)
                   and (r.get("spill_stores") or r.get("spill_loads"))}
         if spills:
             raise AssertionError(f"{name}: bf16 kernels spill registers: {spills}")
+    flash_sass = sass_counts(build, "flash_attention")
+    for inst, c in flash_sass.items():
+        log(f"    flash_attention SASS: {inst}: {c}")
+        builds.setdefault("flash_attention", {}).setdefault(inst, {})["sass"] = c
+    wg = {inst: c for inst, c in flash_sass.items() if "_wg_kernel<" in inst}
+    if len(wg) != 4 or not all(c["HGMMA"] and c["UTMALDG"] for c in wg.values()):
+        raise AssertionError(f"flash_attention: the bf16 kernels lack wgmma or TMA loads: {wg}")
 
     log("[2] kernels vs their plain versions on the card")
     check_kernels(torch, ops, rpa, cg, fa)
@@ -3135,8 +3203,9 @@ def main() -> int:
         timer = Timer(torch)
         long_context_entries(torch, rpa, spec, timer)
         flash_long_entries(torch, fa, spec, timer)
+        flash_long_entries(torch, fa, spec, timer, VLM_SHAPE, "llama-3.2-vision-11b", ts=(4096,))
         long_context_entries(torch, rpa, spec, timer, GEMMA_SHAPE, qwen=False)
-        flash_long_entries(torch, fa, spec, timer, GEMMA_SHAPE)
+        flash_long_entries(torch, fa, spec, timer, GEMMA_SHAPE, "gemma-7b")
         log(f"  Timer: {timer.late} repetitions reached their start event before the host "
             "had queued the call")
         log(f"  card: {smi}; total {time.perf_counter() - t_start:.1f} s")

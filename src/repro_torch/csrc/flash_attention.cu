@@ -4,7 +4,8 @@
 // body _flash_kernel).  The port runs it in every layer of forward_full
 // (models/layers.py::dense_attention) and of every prefill chunk of the
 // contiguous serving path (models/layers.py::cached_attention on a full
-// cache, against the cache's first q_offset + L slots).
+// cache, against the cache's first q_offset + L slots), and in every call
+// of the cross-attention (layers.cross_attention, non-causal).
 //
 // What it computes, per batch b, query row t and query head h:
 //   q_pos    = q_offset + t
@@ -23,55 +24,76 @@
 // (query head, query, key) triple against reading q, k, v once; at a few
 // hundred tokens or more that is far above the ~295 flops per byte where
 // the H100's bf16 tensor cores become the limit, so the bound is
-// operations.  Short chunks (tens of queries) are bound by the K/V bytes
-// of the context they read, and in practice by the latency of their few
-// key tiles in series.
+// operations.  Short chunks (tens of queries) and single-query batches are
+// bound by the K/V bytes they read, and in practice by the latency of their
+// few key tiles in series.
 //
-// bf16 (flash_tc_kernel): the tensor cores.  One block of 4 warps per
-// (64-row query tile, query head, batch); each warp holds 16 query rows as
-// mma.sync.m16n8k16 A-fragments (attention_tile.cuh; at D = 256 it reads
-// them from the shared q tile per 16-deep chunk), and K/V tiles of 64
-// keys stream through a two-stage ring of 16-byte cp.async copies, the next
-// tile in flight while the current one is multiplied.  S = Q K^T, the
-// online softmax and O += P V all stay in registers; P goes to bf16 once,
-// straight from the S registers.  The key loop runs from the window's first
-// key to the tile's last causal key and the heaviest causal tiles go first;
-// within a tile each warp multiplies only the 16-key chunks its own rows
-// keep, and computes masks only on chunks that straddle a causal, window
-// or Tk edge.  Short query tiles (rows <= 32, e.g. a 31-token chunk of the
-// contiguous serve) split each K/V tile's chunks among the block's warps
-// (16 rows: 4 ways, 32 rows: 2 ways) and merge their (m, l, O) in shared
-// memory at the end.  That was chosen over blocks of fewer rows because
-// such calls are few blocks (32 on 132 SMs) each walking a short serial
-// chain of K/V tiles: splitting a tile's keys among idle warps shortens
-// every step of the chain without reading K/V twice, where smaller row
-// tiles would make more blocks each read the same keys.  wgmma with TMA
-// tile loads, warp specialisation and sharing a K/V tile among a group's G
-// query heads are later work.
+// bf16 (flash_wg_kernel): warpgroup products (wgmma) fed by TMA, warp
+// specialised and persistent.  A job is one (row tile, KV head, batch).
+// Its rows are (query position, query head of the group) pairs, row r =
+// position r / G and head r % G of the KV head's G query heads, so each K/V
+// tile is read once for all G heads and a short chunk or a decode batch
+// with G > 1 fills more of the rows; floor(rows / G) positions per job (the
+// wrapper's plan), the spare rows zero and never stored.  The grid holds
+// one block per SM; the blocks take the jobs, heaviest causal row tile
+// first, a round of one job each at a time in snake order (every other
+// round reversed), which evens out their shares of the causal work.  One
+// producer thread loads each job's q (once the consumers are done with the
+// last one's) and each K/V tile of 64 keys by TMA into a ring of up to 4
+// stages (full / empty mbarriers, rows past Tk zero-filled), running on
+// into the next job while the consumers store the last one's output; rows
+// are 128-byte swizzled at D = 64, 128 and 256 and 32-byte at D = 80
+// (160-byte rows: five 16-column atoms).  Each consumer warpgroup owns 64
+// rows: S = Q K^T by wgmma from shared memory into fp32 registers, the
+// scale, softcap, masks and online softmax there, P rounded to bf16 in
+// registers as the A operand of O += P V, V read as it lies through the
+// descriptor's transpose; S of tile t and P V of tile t - 1 are in flight
+// together and t's softmax runs while P V does.  Key tiles run from the
+// window's first key to the last causal key of the job, a warpgroup
+// multiplies only its own live tiles and masks only tiles that straddle a
+// causal, window or Tk edge.
+//   D <= 128: two consumer warpgroups (128 rows) and a producer warp; 9
+//   warps put 3 on one of the SM's 16,384-register quarters, so at most
+//   168 registers a thread, and the consumers' O, S and P (at D = 128:
+//   64 + 32 + 16) fit them with no spill.  setmaxnreg would move a
+//   producer warpgroup's registers to the consumers at run time, but
+//   ptxas still compiles the consumers to the launch's 168, so it changed
+//   neither registers nor time and is not used (PERF.md, Findings).
+//   D = 256: O alone takes 128 registers, so one consumer warpgroup (64
+//   rows) and a producer warp: 5 warps, 255 registers a thread.
+// The one rounding the CPU emulation models, P to bf16 before P V, is the
+// only one besides the output's: scores, the softmax and every sum are fp32.
+// The descriptors (q, K, V as 4-d tensor maps {D, H, T, B}) are encoded on
+// the host at every call through cuTensorMapEncodeTiled, obtained from the
+// runtime, so the library links no -lcuda.  A wait that never completes
+// traps instead of hanging the card.  No second kernel for short calls:
+// this one is faster than the mma.sync kernel it replaced on every timed
+// input, the contiguous serve's 31-query chunks included (PERF.md, row 4).
 //
 // fp32 (flash_kernel): the CUDA cores, kept as it is to hold the port
 // against the reference at fp32 (a TF32 product would change those
 // numbers).  One block of 256 threads per (64-row query tile, query head,
-// batch); q in shared memory, the same two-stage K/V ring (one stage at
-// D = 256, where two would need 351,232 bytes of shared memory against the
-// 232,448 a block may have: the next tile's copies then wait for the
-// current one's products); each thread
-// holds a 2 x 8 block of the 64 x 64 score tile and 2 rows x D/8 columns of
-// the accumulator in registers; the 8 lanes that share a row reduce its max
-// and sum with shuffles, and the probabilities go through shared memory to
-// the P V product.  A row's D / 4 four-float chunks go round the 8 lanes:
-// at D = 80 (20 chunks) lanes 0-3 take three and lanes 4-7 two.
+// batch); q in shared memory, a two-stage K/V ring of 16-byte cp.async
+// copies (one stage at D = 256, where two would need 351,232 bytes of
+// shared memory against the 232,448 a block may have: the next tile's
+// copies then wait for the current one's products); each thread holds a
+// 2 x 8 block of the 64 x 64 score tile and 2 rows x D/8 columns of the
+// accumulator in registers; the 8 lanes that share a row reduce its max and
+// sum with shuffles, and the probabilities go through shared memory to the
+// P V product.  A row's D / 4 four-float chunks go round the 8 lanes: at
+// D = 80 (20 chunks) lanes 0-3 take three and lanes 4-7 two.
 //
 // Head dims: 64, 128, 256 and 80 (hubert-xlarge's encoder, non-causal).
-// D = 80 needs nothing else of the bf16 kernel: its 5 16-deep chunks and
-// 10 8-wide column tiles are whole, and its shared rows of 88 bf16 (176
-// bytes, 44 words) start 12 words apart modulo 32, so the 8 rows of an
-// ldmatrix phase still fall on 8 distinct 4-bank groups.
+#include <cuda.h>  // CUtensorMap and its enums only: no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
+#include <utility>
+
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -358,162 +380,550 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int tq
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------ bf16 kernel
 using bf16 = __nv_bfloat16;
-constexpr int kTcWarps = attn_tile::kWarps;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcRows = 16 * kTcWarps;        // query rows per block
-constexpr int kTcKeys = attn_tile::kTileKeys;  // keys per K/V tile
 
-// Shared memory: q [kTcRows][D + pad], then the K ring [2][kTcKeys][D + pad]
-// and the V ring [2][kTcKeys][D + pad]; after the key loop the rings hold
-// the split warps' partial (m, l, O).
+// ------------------------------------------------- bf16 kernel for Hopper
+constexpr int kMaxSmem = 232448;
+// returned when a tensor map cannot be encoded (no CUDA error stands for it)
+constexpr int kTensorMapError = -1;
+
 template <int D>
-__host__ __device__ constexpr size_t tc_smem_bytes() {
-  return (size_t)(kTcRows + 4 * kTcKeys) * attn_tile::row_stride<D>() * sizeof(bf16);
+struct WgTile {
+  // Consumer warpgroups of 64 rows, two, or one at D = 256, whose O alone
+  // takes 128 registers a thread, and a producer warp.  Two consumers and
+  // the producer are 9 warps, 3 on one of the SM's four 16,384-register
+  // quarters: at most 168 registers a thread, where S, P and O must fit.
+  // One consumer and the producer are 5 warps: 255 registers.
+  static constexpr int kWgs = D > 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kWgs;
+  static constexpr int kConsumers = 128 * kWgs;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kW = D % 64 == 0 ? 64 : 16;  // bf16 columns per swizzle atom
+  static constexpr int kSpan = 2 * kW;              // bytes of an atom row (128 or 32)
+  static constexpr int kLayout = kW == 64 ? hopper::kSwizzle128B : hopper::kSwizzle32B;
+  static constexpr int kAtoms = D / kW;
+  static constexpr int kN = 64;  // keys per K/V tile
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kTileBytes = kN * D * 2;  // K or V of one stage
+  static constexpr int kBarBytes = 256;
+  static constexpr int kStagesFit = (kMaxSmem - 1024 - kBarBytes - kQBytes) / (2 * kTileBytes);
+  static constexpr int kStages = kStagesFit < 4 ? kStagesFit : 4;
+  // 1024 bytes of slack to align the tiles to the 128-byte swizzle's period
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
+  static_assert(kStages >= 2, "two K/V stages must fit");
+  static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0, "tiles on 1024-byte bounds");
+};
+
+// Shared memory of a block, from the dynamic window's base rounded up to
+// 1024 bytes: q [kRows rows], K ring [kStages], V ring [kStages], then the
+// barriers full[kStages], empty[kStages], q_full, q_empty.
+template <int D>
+struct WgSmem {
+  using C = WgTile<D>;
+  uint32_t q, k, v, bars;
+  __device__ __forceinline__ explicit WgSmem(const void* raw) {
+    q = (hopper::smem_u32(raw) + 1023u) & ~1023u;
+    k = q + C::kQBytes;
+    v = k + C::kStages * C::kTileBytes;
+    bars = v + C::kStages * C::kTileBytes;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8u * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8u * (C::kStages + s); }
+  __device__ __forceinline__ uint32_t q_full() const { return bars + 16u * C::kStages; }
+  __device__ __forceinline__ uint32_t q_empty() const { return bars + 16u * C::kStages + 8u; }
+};
+
+// One job: one (row tile, KV head, batch), worked out from its index alone,
+// so that each role works it out for itself.  Jobs go heaviest causal row
+// tile first, across every (batch, KV head), then the next tile.
+struct WgJob {
+  int q0, npos, kvh, b;  // first query position, positions, KV head, batch
+  int t_lo, t_hi;        // the K/V tiles any of its rows keeps a key of
+  __device__ __forceinline__ WgJob(int job, int kn, int batch, int tq, int tk, int hkv,
+                                   int positions, int q_offset, int causal, int window) {
+    const int per = hkv * batch, tiles = (tq + positions - 1) / positions;
+    kvh = job % hkv;
+    b = (job / hkv) % batch;
+    q0 = (tiles - 1 - job / per) * positions;
+    npos = min(positions, tq - q0);
+    const int k_lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
+    const int k_hi = causal ? min(tk, q_offset + q0 + npos) : tk;
+    t_lo = k_lo / kn;
+    t_hi = k_hi > k_lo ? (k_hi + kn - 1) / kn : t_lo;
+  }
+};
+
+__device__ __forceinline__ int wg_jobs(int batch, int tq, int hkv, int positions) {
+  return (tq + positions - 1) / positions * hkv * batch;
+}
+
+// This block's job of round r: the grid takes the jobs a round of gridDim.x
+// at a time, in snake order (round r in reverse when r is odd), so that the
+// blocks' shares of the heaviest-first list come out even; -1 past the end.
+__device__ __forceinline__ int wg_job(int r, int jobs) {
+  const int n = gridDim.x, x = blockIdx.x;
+  const int job = r * n + (r & 1 ? n - 1 - x : x);
+  return job < jobs ? job : -1;
+}
+
+// Scores of one K/V tile in a consumer's registers (element 4 j + e: row
+// e / 2 of the thread's two, key k0 + 8 j + 2 (lane % 4) + e % 2), made
+// ready for the online softmax: with a softcap, tanh(s * scale / cap) * cap
+// times log2(e); without, left raw (the softmax scales them in its exp2).
+// Masked keys become -inf (only on a tile some row keeps in part: kEdge).
+// Returns each row's max, in the log2-scaled units.
+template <int kN, bool kCap, bool kEdge>
+__device__ __forceinline__ void tile_scores(float (&sc)[kN / 2], float (&mx)[2], int k0,
+                                            int lane, const int (&lo)[2], const int (&hi)[2],
+                                            float qk_scale, float cap_in, float cap_out) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float z = sc[4 * j + e];
+      if (kCap) z = tanhf(z * cap_in) * cap_out;
+      if (kEdge) {
+        const int key = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+        if (key < lo[r] || key >= hi[r]) z = -INFINITY;
+      }
+      sc[4 * j + e] = z;
+      mx[r] = fmaxf(mx[r], z);
+    }
+  if (!kCap) {
+    mx[0] *= qk_scale;  // qk_scale > 0 keeps the order, and -inf
+    mx[1] *= qk_scale;
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of one tile into a consumer's registers: D / 16 steps of 16,
+// q and K both K-major in their swizzled atom columns (step kk reads atom
+// column 16 kk / W at byte 2 (16 kk % W) of its rows).
+template <int D, int kN, int... kk>
+__device__ __forceinline__ void qk_steps(float (&sc)[kN / 2], uint64_t dq, uint64_t dk,
+                                         std::integer_sequence<int, kk...>) {
+  using C = WgTile<D>;
+  constexpr int kW = C::kW, kSpan = C::kSpan;
+  (hopper::SS<kN>::template mma<(16 * kk / kW * C::kRows * kSpan + 32 * kk % (2 * kW)) / 16,
+                                (16 * kk / kW * kN * kSpan + 32 * kk % (2 * kW)) / 16>(
+       sc, dq, dk, kk > 0),
+   ...);
+}
+
+template <int D, int kN>
+__device__ __forceinline__ void qk_product(float (&sc)[kN / 2], uint32_t q_wg, uint32_t ks) {
+  using C = WgTile<D>;
+  qk_steps<D, kN>(sc, hopper::desc(q_wg, 16, 8 * C::kSpan, C::kLayout),
+                  hopper::desc(ks, 16, 8 * C::kSpan, C::kLayout),
+                  std::make_integer_sequence<int, D / 16>());
+}
+
+// O += P V of one tile: P from registers, V as it lies (keys x D), read
+// transposed by its descriptor, 16 keys (16 rows of every atom column) a step.
+template <int D, int kN, int... c>
+__device__ __forceinline__ void pv_steps(float (&o)[D / 2], const uint32_t (&p)[kN / 16][4],
+                                         uint64_t dv, std::integer_sequence<int, c...>) {
+  (hopper::RS<D>::template mma<c * WgTile<D>::kSpan>(o, p[c], dv), ...);
+}
+
+template <int D, int kN>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p)[kN / 16][4],
+                                           uint32_t vs) {
+  using C = WgTile<D>;
+  pv_steps<D, kN>(o, p, hopper::desc(vs, kN * C::kSpan, 8 * C::kSpan, C::kLayout),
+                  std::make_integer_sequence<int, kN / 16>());
+}
+
+// The online softmax of one tile's scores: the running max m (log2 units),
+// alpha = 2^(m_old - m_new) for O and l, and the tile's probabilities
+// 2^(score - m_new), fp32, in place of the scores; l gains their sum.
+template <int kN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kN / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int lane,
+                                             const int (&lo)[2], const int (&hi)[2],
+                                             int lo_max, int hi_min, float qk_scale,
+                                             float softcap, float cap_in, float cap_out) {
+  const bool edge = k0 < lo_max || k0 + kN > hi_min;  // some row keeps part of the tile
+  float mx[2];
+  if (softcap != 0.f) {
+    if (edge)
+      tile_scores<kN, true, true>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
+    else
+      tile_scores<kN, true, false>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
+  } else {
+    if (edge)
+      tile_scores<kN, false, true>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
+    else
+      tile_scores<kN, false, false>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
+  }
+  const float f = softcap != 0.f ? 1.f : qk_scale;  // the scores' factor into log2 units
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], attn_tile::quad_max(mx[r]));
+    mu[r] = m_new == -INFINITY ? 0.f : m_new;  // no kept key yet: 2^-inf = 0
+    alpha[r] = ex2(m[r] - mu[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = ex2(fmaf(sc[4 * j + e], f, -mu[e >> 1]));
+      sc[4 * j + e] = x;
+      l[e >> 1] += x;
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, 2)
-    flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, int tq, int tk,
-                    int h, int hkv, long long q_bstride, long long kv_bstride,
-                    int q_offset, int causal, int window, float scale, float softcap) {
-  using Tile = attn_tile::WarpTile<D>;
-  constexpr int S = attn_tile::row_stride<D>();
-  constexpr int kRowChunks = D / 8;  // 16-byte chunks per row
-  static_assert((kTcKeys * 4 * S * sizeof(bf16)) >=
-                    (kTcWarps - 1) * 16 * Tile::kPartStride * sizeof(float),
-                "the split warps' partials must fit in the K/V rings");
-  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (h / hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = tile * kTcRows;
-  const int rows = min(kTcRows, tq - q0);  // real query rows of this tile
-
-  const attn_tile::WarpRole role(rows, warp);
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kTcRows * S;
-  bf16* v_s = k_s + 2 * kTcKeys * S;
-
-  // Keys any row of the tile keeps lie in [k_lo, k_hi).
-  int k_lo = 0, k_hi = tk;
-  if (causal) k_hi = min(tk, q_offset + q0 + rows);
-  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
-  const int t_lo = k_lo / kTcKeys;
-  const int t_hi = k_hi > k_lo ? (k_hi + kTcKeys - 1) / kTcKeys : t_lo;
-
-  const size_t q_tok = (size_t)h * D, kv_tok = (size_t)hkv * D;
-  const bf16* qb = q + b * q_bstride + (size_t)head * D;
-  const bf16* kb = k + b * kv_bstride + (size_t)kvh * D;
-  const bf16* vb = v + b * kv_bstride + (size_t)kvh * D;
-
-  // The tile's q rows (rows past Tq are zero); these copies join the first
-  // K/V group.
-  for (int e = tid; e < kTcRows * kRowChunks; e += kTcThreads) {
-    const int r = e / kRowChunks, c = e - r * kRowChunks;
-    bf16* dst = q_s + r * S + c * 8;
-    if (r < rows) {
-      cp_async16(dst, qb + (size_t)(q0 + r) * q_tok + c * 8);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  // Every 16-byte copy of key tile t's K and V rows into its stage, then one
-  // commit (an empty group past the last tile).  V rows past Tk up to the
-  // next 16-key chunk are zeroed: P V multiplies them by p = 0.
-  auto fetch = [&](int t) {
-    if (t < t_hi) {
-      const int k0 = t * kTcKeys;
-      const int n = min(kTcKeys, tk - k0);
-      const int st = (t - t_lo) & 1;
-      bf16* ks = k_s + st * kTcKeys * S;
-      bf16* vs = v_s + st * kTcKeys * S;
-      const int nvec = n * kRowChunks;
-      for (int e = tid; e < 2 * nvec; e += kTcThreads) {
-        const int which = e >= nvec;  // 0: K, 1: V
-        const int r = (e - which * nvec) / kRowChunks;
-        const int c = (e - which * nvec) - r * kRowChunks;
-        const size_t off = (size_t)(k0 + r) * kv_tok + c * 8;
-        cp_async16((which ? vs : ks) + r * S + c * 8, (which ? vb : kb) + off);
-      }
-      const int pad = (((n + 15) & ~15) - n) * kRowChunks;
-      for (int e = tid; e < pad; e += kTcThreads) {
-        const int r = n + e / kRowChunks, c = e % kRowChunks;
-        *reinterpret_cast<uint4*>(vs + r * S + c * 8) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    cp_async_commit();
-  };
-
-  // this lane's rows, lane / 4 and lane / 4 + 8 of the warp's 16, keep the
-  // keys in [lo, hi)
-  Tile w;
-  {
-    int lo[2], hi[2];
-    bool exists[2];
+__device__ __forceinline__ void rescale_o(float (&o)[D / 2], const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 16 * role.rw + (lane >> 2) + 8 * i;
-      const int q_pos = q_offset + q0 + r;
-      exists[i] = role.active && r < rows;
-      lo[i] = window > 0 ? max(0, q_pos - window + 1) : 0;
-      hi[i] = causal ? min(tk, q_pos + 1) : tk;
-    }
-    w.set_rows(lo, hi, exists);
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
   }
+}
 
-  fetch(t_lo);
-  for (int t = t_lo; t < t_hi; ++t) {
-    fetch(t + 1);
-    cp_async_wait<1>();  // this thread's copies of tile t (and q) are done
-    __syncthreads();     // ...everyone's
-    if (role.active) {
-      if (t == t_lo) w.load_q(q_s + 16 * role.rw * S, S);
-      const int k0 = t * kTcKeys;
-      int c0 = role.c0, c1 = role.c1;
-      w.live_chunks(k0, c0, c1);
-      if (c0 < c1) {
-        const bool edge = !(k0 + 16 * c0 >= w.lo_max && k0 + 16 * c1 <= w.hi_min);
-        const int st = (t - t_lo) & 1;
-        w.tile(k_s + st * kTcKeys * S, v_s + st * kTcKeys * S, S, k0, c0, c1, edge,
-               scale, softcap);
+// P to bf16 straight from the S registers: keys 16 c .. 16 c + 15 of the
+// tile are registers 8 c .. 8 c + 7, i.e. the A operand of one 16-deep step.
+template <int kN>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[kN / 16][4], const float (&sc)[kN / 2]) {
+#pragma unroll
+  for (int c = 0; c < kN / 16; ++c)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      p[c][x] = attn_tile::pack_bf16(sc[8 * c + 2 * x], sc[8 * c + 2 * x + 1]);
+}
+
+// The producer: one thread issues every TMA copy.  Per job, once the
+// consumers are done with the last job's q (q_empty), its q, then each K/V
+// tile into the next stage of the ring once the consumers have freed it;
+// the ring's stages and phases run on across jobs.
+template <int D>
+__device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map, const WgSmem<D>& sm,
+                                        int batch, int tq, int tk, int hkv, int group,
+                                        int positions, int q_offset, int causal, int window) {
+  using C = WgTile<D>;
+  constexpr int kN = C::kN, kS = C::kStages;
+  hopper::prefetch_map(q_map);
+  hopper::prefetch_map(k_map);
+  hopper::prefetch_map(v_map);
+  const int jobs = wg_jobs(batch, tq, hkv, positions);
+  int g = 0, loaded = 0;  // K/V tiles and q tiles loaded so far
+  for (int r = 0; r * (int)gridDim.x < jobs; ++r) {
+    const int job = wg_job(r, jobs);
+    if (job < 0) continue;
+    const WgJob jb(job, kN, batch, tq, tk, hkv, positions, q_offset, causal, window);
+    if (jb.t_hi <= jb.t_lo) continue;  // no key: the consumers write zeros
+    if (loaded > 0) hopper::mbar_wait(sm.q_empty(), (loaded - 1) & 1);
+    hopper::mbar_expect_tx(sm.q_full(), (uint32_t)(positions * group * D * 2));
+    for (int a = 0; a < C::kAtoms; ++a)
+      hopper::tma_load_4d(sm.q + a * C::kRows * C::kSpan, q_map, sm.q_full(), a * C::kW,
+                          jb.kvh * group, jb.q0, jb.b);
+    ++loaded;
+    for (int t = jb.t_lo; t < jb.t_hi; ++t, ++g) {
+      const int s = g % kS;
+      hopper::mbar_wait(sm.empty(s), ((g / kS) & 1) ^ 1);
+      hopper::mbar_expect_tx(sm.full(s), 2u * C::kTileBytes);
+      const uint32_t ks = sm.k + s * C::kTileBytes, vs = sm.v + s * C::kTileBytes;
+      for (int a = 0; a < C::kAtoms; ++a) {
+        hopper::tma_load_4d(ks + a * kN * C::kSpan, k_map, sm.full(s), a * C::kW, jb.kvh,
+                            t * kN, jb.b);
+        hopper::tma_load_4d(vs + a * kN * C::kSpan, v_map, sm.full(s), a * C::kW, jb.kvh,
+                            t * kN, jb.b);
       }
     }
-    __syncthreads();  // stage st is free for tile t + 2
   }
-  cp_async_wait<0>();  // no copy outlives the block
-  attn_tile::merge_splits(w, role, reinterpret_cast<float*>(k_s));
-  if (!role.active || role.sp != 0) return;
+}
+
+// A consumer warpgroup on one job: 64 rows of the block, S = Q K^T, the
+// online softmax and O += P V over its live tiles, then O / l into the
+// rows' outputs.  The job's K/V tiles are the ring's g0, g0 + 1, ... and its
+// q the ring's k-th.
+template <int D>
+__device__ __forceinline__ void consume_job(const WgSmem<D>& sm, const WgJob& jb, int g0,
+                                            int k, int wg, bf16* __restrict__ out, int tq,
+                                            int tk, int h, int group, int q_offset,
+                                            int causal, int window, float scale,
+                                            float softcap) {
+  using C = WgTile<D>;
+  constexpr int kN = C::kN, kS = C::kStages;
+  const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
+  const int nrows = jb.npos * group;  // real rows of the job
+  const int q0 = jb.q0, t_lo = jb.t_lo, t_hi = jb.t_hi;
+  auto stage = [&](int t) { return (g0 + t - t_lo) % kS; };
+  auto phase = [&](int t) { return ((g0 + t - t_lo) / kS) & 1; };
+
+  // this thread's rows (lane / 4 and lane / 4 + 8 of its warp's 16) keep
+  // the keys in [lo, hi)
+  auto lo_of = [&](int t) { return window > 0 ? max(0, q_offset + q0 + t - window + 1) : 0; };
+  auto hi_of = [&](int t) { return causal ? min(tk, q_offset + q0 + t + 1) : tk; };
+  int lo[2], hi[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = 16 * role.rw + (lane >> 2) + 8 * i;
-    if (r < rows) w.store_row(i, out + (((size_t)b * tq + q0 + r) * h + head) * D);
+    const int r = 64 * wg + 16 * warp + (lane >> 2) + 8 * i;
+    lo[i] = r < nrows ? lo_of(r / group) : attn_tile::kNoKey;
+    hi[i] = r < nrows ? hi_of(r / group) : -attn_tile::kNoKey;
+  }
+  // a tile needs masks unless every row of the warpgroup keeps all its keys
+  // (lo and hi grow with the position)
+  const int lo_max = lo_of(min(64 * wg + 63, nrows - 1) / group);
+  const int hi_min = hi_of(64 * wg / group);
+
+  const uint32_t q_wg = sm.q + 64 * wg * C::kSpan;
+  const float qk_scale = scale * attn_tile::kLog2e;
+  const float cap_in = softcap != 0.f ? scale / softcap : 0.f;
+  const float cap_out = softcap * attn_tile::kLog2e;
+
+  float o[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float sc[kN / 2];        // S of the tile in hand
+  uint32_t p[kN / 16][4];  // bf16 P of the tile before it: the A operand of P V
+
+  // The warpgroup's live tiles [ta, tb): those holding a key one of its
+  // rows keeps.  The others only pass through its hands (a wait and a
+  // release).
+  int ta = t_lo, tb = t_lo;
+  if (64 * wg < nrows) {
+    ta = min(t_hi, max(t_lo, lo_of(64 * wg / group) / kN));
+    tb = max(ta, min(t_hi, (hi_of(min(64 * wg + 63, nrows - 1) / group) + kN - 1) / kN));
+  }
+  auto pass = [&](int t) {  // a tile none of the warpgroup's rows keeps
+    hopper::mbar_wait(sm.full(stage(t)), phase(t));
+    hopper::mbar_arrive(sm.empty(stage(t)));
+  };
+
+  if (t_hi > t_lo) hopper::mbar_wait(sm.q_full(), k & 1);
+  for (int t = t_lo; t < ta; ++t) pass(t);
+  if (ta < tb) {
+    // the first live tile: S, its softmax and P
+    int prev = stage(ta);
+    hopper::mbar_wait(sm.full(prev), phase(ta));
+    hopper::wgmma_fence();
+    qk_product<D, kN>(sc, q_wg, sm.k + prev * C::kTileBytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    float alpha[2];
+    softmax_tile<kN>(sc, m, l, alpha, ta * kN, lane, lo, hi, lo_max, hi_min, qk_scale, softcap,
+                     cap_in, cap_out);
+    pack_p<kN>(p, sc);
+    // the rest: S of tile t and O += P V of tile t - 1 in flight together,
+    // then t's softmax while P V runs
+    for (int t = ta + 1; t < tb; ++t) {
+      const int s = stage(t);
+      hopper::mbar_wait(sm.full(s), phase(t));
+      hopper::wgmma_fence();
+      qk_product<D, kN>(sc, q_wg, sm.k + s * C::kTileBytes);
+      hopper::wgmma_commit();
+      pv_product<D, kN>(o, p, sm.v + prev * C::kTileBytes);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // S is done; P V may still run
+      hopper::fence_regs(sc);
+      softmax_tile<kN>(sc, m, l, alpha, t * kN, lane, lo, hi, lo_max, hi_min, qk_scale,
+                       softcap, cap_in, cap_out);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(p);
+      hopper::mbar_arrive(sm.empty(prev));
+      rescale_o<D>(o, alpha);
+      pack_p<kN>(p, sc);
+      prev = s;
+    }
+    // the last P V
+    hopper::wgmma_fence();
+    pv_product<D, kN>(o, p, sm.v + prev * C::kTileBytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(p);
+    hopper::mbar_arrive(sm.empty(prev));
+  }
+  for (int t = max(ta, tb); t < t_hi; ++t) pass(t);
+  if (t_hi > t_lo) hopper::mbar_arrive(sm.q_empty());  // done with q
+
+  // O / l with a safe l (a row that keeps no key: 0), bf16, into its
+  // (position, head) row; columns 8 j + 2 (lane % 4) + {0, 1}
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = attn_tile::quad_sum(l[r]);
+    const int rr = 64 * wg + 16 * warp + (lane >> 2) + 8 * r;
+    if (rr >= nrows) continue;
+    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    bf16* row = out + (((size_t)jb.b * tq + q0 + rr / group) * h +
+                       (size_t)jb.kvh * group + rr % group) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * (lane & 3)) =
+          attn_tile::pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
 }
 
+// A consumer warpgroup's jobs, in the producer's order.
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int tq,
-              int tk, int h, int hkv, long long q_bstride, long long kv_bstride,
+__device__ __forceinline__ void consume(const WgSmem<D>& sm, int wg, bf16* __restrict__ out,
+                                        int batch, int tq, int tk, int h, int hkv, int group,
+                                        int positions, int q_offset, int causal, int window,
+                                        float scale, float softcap) {
+  using C = WgTile<D>;
+  const int jobs = wg_jobs(batch, tq, hkv, positions);
+  int g = 0, k = 0;  // K/V tiles and q tiles consumed so far
+  for (int r = 0; r * (int)gridDim.x < jobs; ++r) {
+    const int job = wg_job(r, jobs);
+    if (job < 0) continue;
+    const WgJob jb(job, C::kN, batch, tq, tk, hkv, positions, q_offset, causal, window);
+    consume_job<D>(sm, jb, g, k, wg, out, tq, tk, h, group, q_offset, causal, window, scale,
+                   softcap);
+    if (jb.t_hi > jb.t_lo) {
+      g += jb.t_hi - jb.t_lo;
+      ++k;
+    }
+  }
+}
+
+// Warp-specialised and persistent: the consumer warpgroups own 64 rows
+// each, the producer warp issues every TMA copy from one thread.  A block
+// takes jobs of one (row tile, KV head, batch) in turn; a job's rows are
+// (query position, query head of the group) pairs, row r = position r / G,
+// head r % G of the KV head's group, `positions` = floor(rows / G)
+// positions (the wrapper's plan), the spare rows zero and never stored.
+template <int D>
+__global__ void __launch_bounds__(WgTile<D>::kThreads, 1)
+    flash_wg_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+                    int batch, int tq, int tk, int h, int hkv, int positions, int q_offset,
+                    int causal, int window, float scale, float softcap) {
+  using C = WgTile<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int group = h / hkv;
+  {
+    const WgSmem<D> sm(smem_raw);
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < C::kStages; ++s) {
+        hopper::mbar_init(sm.full(s), 1);
+        hopper::mbar_init(sm.empty(s), C::kConsumers);  // every consumer thread releases
+      }
+      hopper::mbar_init(sm.q_full(), 1);
+      hopper::mbar_init(sm.q_empty(), C::kConsumers);
+      hopper::mbar_init_fence();
+    }
+    // q rows past the block's pairs are never loaded: zero them once
+    if (positions * group < C::kRows) {
+      unsigned char* q = smem_raw + (sm.q - hopper::smem_u32(smem_raw));
+      const int from = positions * group * C::kSpan / 16, per = C::kRows * C::kSpan / 16;
+      for (int e = threadIdx.x; e < C::kAtoms * per; e += C::kThreads) {
+        const int a = e / per, x = e - a * per;
+        if (x >= from) reinterpret_cast<uint4*>(q)[a * per + x] = make_uint4(0u, 0u, 0u, 0u);
+      }
+      hopper::fence_proxy_async();
+    }
+  }
+  __syncthreads();
+
+  // the warpgroup's index, visibly uniform across each warp
+  const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wgi == C::kWgs) {
+    if (threadIdx.x == C::kConsumers)
+      produce<D>(&q_map, &k_map, &v_map, WgSmem<D>(smem_raw), batch, tq, tk, hkv, group,
+                 positions, q_offset, causal, window);
+    return;
+  }
+  consume<D>(WgSmem<D>(smem_raw), wgi, out, batch, tq, tk, h, hkv, group, positions, q_offset,
+             causal, window, scale, softcap);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime: the library
+// links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, T, H, D) bf16 tensor whose (T, H, D) part is contiguous, batch
+// stride `bstride` elements, as the 4-d map {D, H, T, B} (innermost first)
+// read in boxes of {w, heads, rows, 1}.  Rows past T read as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d,
+                long long bstride, int w, int heads, int rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  t = t > 0 ? t : 1;  // a map needs extents of at least 1; no tile reads past Tk
+  const long long tok = (long long)h * d;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)tok * 2,
+                                 (cuuint64_t)(b > 1 ? bstride : t * tok) * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)w, (cuuint32_t)heads, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int tq, int tk,
+              int h, int hkv, long long q_bstride, long long kv_bstride, int positions,
               int q_offset, int causal, int window, float scale, float softcap,
               cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<D>();
+  using C = WgTile<D>;
+  const int group = h / hkv;
+  if (positions < 1 || positions * group > C::kRows) return (int)cudaErrorInvalidValue;
   static bool attribute_set = false;  // once per instantiation
-  if (smem > 48 * 1024 && !attribute_set) {
+  if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_wg_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err != cudaSuccess) return (int)err;
     attribute_set = true;
   }
-  dim3 grid((tq + kTcRows - 1) / kTcRows, h, b);
-  flash_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), tq, tk, h, hkv, q_bstride, kv_bstride, q_offset, causal,
-      window, scale, softcap);
+  const CUtensorMapSwizzle swizzle =
+      C::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(&q_map, q, b, tq, h, D, q_bstride, C::kW, group, positions, swizzle) ||
+      !encode_map(&k_map, k, b, tk, hkv, D, kv_bstride, C::kW, 1, C::kN, swizzle) ||
+      !encode_map(&v_map, v, b, tk, hkv, D, kv_bstride, C::kW, 1, C::kN, swizzle))
+    return kTensorMapError;
+  const long long jobs = (long long)((tq + positions - 1) / positions) * hkv * b;
+  if (jobs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0;  // one block per SM: each fills one with its shared memory
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)(jobs < sms ? jobs : sms);
+  flash_wg_kernel<D><<<blocks, C::kThreads, C::kSmem, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(out), b, tq, tk, h, hkv, positions, q_offset,
+      causal, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -523,14 +933,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int
 // each with its (t, head, d) part contiguous and batch strides q_bstride /
 // kv_bstride in elements (k and v share theirs); out (b, tq, h, d)
 // contiguous.  Every pointer and batch stride 16-byte aligned, h % hkv == 0,
-// q_offset >= 0 (the wrapper checks).  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for an unsupported head
-// dim or dtype.  Launches on `stream`, allocates nothing, never synchronises.
+// q_offset >= 0 (the wrapper checks).  `positions`: query positions per
+// block of the bf16 kernel, 1 <= positions * (h / hkv) <= 128 (the
+// wrapper's plan; fp32 ignores it).  Returns cudaGetLastError() after the
+// launch (0 on success), cudaErrorInvalidValue for an unsupported head dim,
+// dtype or plan, or -1 if a tensor map cannot be encoded.  Launches on
+// `stream`, allocates nothing, never synchronises.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                void* out, int b, int tq, int tk, int h, int hkv, int d,
-                               long long q_bstride, long long kv_bstride, int q_offset,
-                               int causal, int window, float scale, float softcap,
-                               void* stream) {
+                               long long q_bstride, long long kv_bstride, int positions,
+                               int q_offset, int causal, int window, float scale,
+                               float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(T, DIM)                                                          \
   return launch<T, DIM>(q, k, v, out, b, tq, tk, h, hkv, q_bstride, kv_bstride, \
@@ -540,14 +953,14 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
   if (dtype == 0 && d == 128) FA_LAUNCH(float, 128);
   if (dtype == 0 && d == 256) FA_LAUNCH(float, 256);
 #undef FA_LAUNCH
-#define FA_LAUNCH_TC(DIM)                                                           \
-  return launch_tc<DIM>(q, k, v, out, b, tq, tk, h, hkv, q_bstride, kv_bstride, \
+#define FA_LAUNCH_WG(DIM)                                                                    \
+  return launch_wg<DIM>(q, k, v, out, b, tq, tk, h, hkv, q_bstride, kv_bstride, positions, \
                         q_offset, causal, window, scale, softcap, st)
-  if (dtype == 1 && d == 64) FA_LAUNCH_TC(64);
-  if (dtype == 1 && d == 80) FA_LAUNCH_TC(80);
-  if (dtype == 1 && d == 128) FA_LAUNCH_TC(128);
-  if (dtype == 1 && d == 256) FA_LAUNCH_TC(256);
-#undef FA_LAUNCH_TC
+  if (dtype == 1 && d == 64) FA_LAUNCH_WG(64);
+  if (dtype == 1 && d == 80) FA_LAUNCH_WG(80);
+  if (dtype == 1 && d == 128) FA_LAUNCH_WG(128);
+  if (dtype == 1 && d == 256) FA_LAUNCH_WG(256);
+#undef FA_LAUNCH_WG
   return (int)cudaErrorInvalidValue;
 }
 
@@ -558,9 +971,9 @@ extern "C" long long flash_attention_smem_bytes(int dtype, int d) {
   if (dtype == 0 && d == 80) return (long long)smem_bytes<float, 80>();
   if (dtype == 0 && d == 128) return (long long)smem_bytes<float, 128>();
   if (dtype == 0 && d == 256) return (long long)smem_bytes<float, 256>();
-  if (dtype == 1 && d == 64) return (long long)tc_smem_bytes<64>();
-  if (dtype == 1 && d == 80) return (long long)tc_smem_bytes<80>();
-  if (dtype == 1 && d == 128) return (long long)tc_smem_bytes<128>();
-  if (dtype == 1 && d == 256) return (long long)tc_smem_bytes<256>();
+  if (dtype == 1 && d == 64) return (long long)WgTile<64>::kSmem;
+  if (dtype == 1 && d == 80) return (long long)WgTile<80>::kSmem;
+  if (dtype == 1 && d == 128) return (long long)WgTile<128>::kSmem;
+  if (dtype == 1 && d == 256) return (long long)WgTile<256>::kSmem;
   return 0;
 }

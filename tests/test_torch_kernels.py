@@ -452,17 +452,99 @@ def _bf16(shape, seed):
     return torch.from_numpy(_rand(shape, seed)).bfloat16()
 
 
+# keys per K/V tile of the bf16 flash kernel (WgTile::kN)
+WG_KEYS = 64
+
+
+def _row_tiles(tq, group, d):
+    """The bf16 flash kernel's row tiles of one (batch, KV head): for row
+    tile x and row r the (query position, head of the group) pair it serves,
+    or None for a spare row, as the kernel maps them: ceil(tq / positions)
+    tiles, r -> (x * positions + r // group, r % group) with the wrapper's
+    ``block_positions``."""
+    pos = flash_attention.block_positions(group, d)
+    return [[(x * pos + r // group, r % group)
+             if r < pos * group and x * pos + r // group < tq else None
+             for r in range(flash_attention.block_rows(d))]
+            for x in range(-(-tq // pos))]
+
+
+def _wgmma_attention(q, k, v, causal, window, q_offset, softcap=0.0):
+    """Test-only emulation of the bf16 flash kernel (csrc/flash_attention.cu,
+    flash_wg_kernel) as it walks its blocks: the wrapper's row tiles of
+    (position, head of the group) pairs, warpgroups of 64 of those rows,
+    each over its own live K/V tiles of WG_KEYS keys (K/V zero past Tk),
+    masks only on a tile some row of the warpgroup keeps in part, the
+    online softmax with fp32 max and sum, P rounded to bf16 before P V,
+    fp32 sums, O / l with a safe l, rounded to bf16.  Spare rows hold zero
+    q and are not stored.  q (B, Tq, H, D), k and v (B, Tk, Hkv, D) bf16.
+    Returns (B, Tq, H, D) bf16."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group, kn = h // hkv, WG_KEYS
+    pos = flash_attention.block_positions(group, d)
+    pad = -(-max(tk, 1) // kn) * kn - tk
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    qf = q.float().reshape(b, tq, hkv, group, d)
+    out = torch.zeros((b, tq, hkv, group, d))
+
+    def lo_of(p):
+        return max(0, q_offset + p - window + 1) if window else 0
+
+    def hi_of(p):
+        return min(tk, q_offset + p + 1) if causal else tk
+
+    for x, pairs in enumerate(_row_tiles(tq, group, d)):
+        q0, npos = x * pos, min(pos, tq - x * pos)
+        k_lo, k_hi = lo_of(q0), hi_of(q0 + npos - 1)
+        t_lo = k_lo // kn
+        t_hi = -(-k_hi // kn) if k_hi > k_lo else t_lo
+        for w0 in range(0, len(pairs), 64):
+            rows = [pr for pr in pairs[w0:w0 + 64] if pr is not None]
+            if not rows:
+                continue
+            ta = min(t_hi, max(t_lo, lo_of(rows[0][0]) // kn))
+            tb = max(ta, min(t_hi, -(-hi_of(rows[-1][0]) // kn)))
+            lo_max, hi_min = lo_of(rows[-1][0]), hi_of(rows[0][0])
+            ts, gs = (torch.tensor(x) for x in zip(*rows))
+            qw = qf[:, ts, :, gs].permute(1, 2, 0, 3)  # (B, Hkv, R, D)
+            lo = torch.tensor([lo_of(t) for t, _ in rows])[:, None]
+            hi = torch.tensor([hi_of(t) for t, _ in rows])[:, None]
+            m = torch.full(qw.shape[:3], float("-inf"))
+            l = torch.zeros(qw.shape[:3])
+            o = torch.zeros(qw.shape)
+            for t in range(ta, tb):
+                k0 = t * kn
+                s = torch.einsum("bhrd,bshd->bhrs", qw, kf[:, k0:k0 + kn]) * d**-0.5
+                if softcap:
+                    s = torch.tanh(s / softcap) * softcap
+                if k0 < lo_max or k0 + kn > hi_min:
+                    key = torch.arange(k0, k0 + kn)[None, :]
+                    s = s.masked_fill((key < lo) | (key >= hi), float("-inf"))
+                m_new = torch.maximum(m, s.amax(-1))
+                mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+                alpha = torch.exp(m - mu)
+                p = torch.exp(s - mu[..., None])
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + torch.einsum(
+                    "bhrs,bshd->bhrd", p.bfloat16().float(), vf[:, k0:k0 + kn])
+                m = m_new
+            res = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], 0.0)
+            out[:, ts, :, gs] = res.permute(2, 0, 1, 3)
+    return out.reshape(b, tq, h, d).bfloat16()
+
+
 @pytest.mark.parametrize("case", CHIP_SMOKE.FLASH_CASES, ids=lambda c: c[0])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_tensor_core_rounding_stays_inside_bf16_tol_flash(case, softcap):
-    """The flash kernel's bf16 arithmetic (P rounded to bf16 before P V)
+    """The bf16 flash kernel's arithmetic and tile walk (_wgmma_attention)
     against its plain version on chip_smoke.py's phase-2 flash cases, at
     narrow heads: inside the bf16 tolerance the card holds it to."""
     _, b, tq, tk, causal, window, q_offset = case
     h, hkv, d = 4, 2, 64
     q, k, v = _bf16((b, tq, h, d), 70), _bf16((b, tk, hkv, d), 71), _bf16((b, tk, hkv, d), 72)
-    keep = CHIP_SMOKE.flash_keep(torch, tq, tk, causal, window, q_offset)
-    got = _tensor_core_attention(q, k, v, keep.expand(b, tq, tk), softcap)
+    got = _wgmma_attention(q, k, v, causal, window, q_offset, softcap)
     want = flash_attention_ref(q, k, v, causal=causal, sliding_window=window,
                                q_offset=q_offset, logit_softcap=softcap)
     print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
@@ -472,12 +554,12 @@ def test_tensor_core_rounding_stays_inside_bf16_tol_flash(case, softcap):
 @pytest.mark.parametrize("case", CHIP_SMOKE.FLASH_CASES, ids=lambda c: c[0])
 def test_tensor_core_rounding_stays_inside_bf16_tol_flash_d256(case):
     """As above at gemma-7b's head dim of 256 (fewer heads), where the
-    scores' scale is 1/16 and each row's P V sums 256 columns."""
+    scores' scale is 1/16, each row's P V sums 256 columns and a block has
+    one consumer warpgroup of 64 rows."""
     _, b, tq, tk, causal, window, q_offset = case
     h, hkv, d = 2, 2, 256
     q, k, v = _bf16((b, tq, h, d), 73), _bf16((b, tk, hkv, d), 74), _bf16((b, tk, hkv, d), 75)
-    keep = CHIP_SMOKE.flash_keep(torch, tq, tk, causal, window, q_offset)
-    got = _tensor_core_attention(q, k, v, keep.expand(b, tq, tk))
+    got = _wgmma_attention(q, k, v, causal, window, q_offset)
     want = flash_attention_ref(q, k, v, causal=causal, sliding_window=window,
                                q_offset=q_offset)
     print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
@@ -487,19 +569,57 @@ def test_tensor_core_rounding_stays_inside_bf16_tol_flash_d256(case):
 @pytest.mark.parametrize("case", CHIP_SMOKE.FLASH_CASES + CHIP_SMOKE.CROSS_CASES,
                          ids=lambda c: c[0])
 def test_tensor_core_rounding_stays_inside_bf16_tol_flash_d80(case):
-    """As above at hubert-xlarge's head dim of 80 (5 16-deep chunks and 10
-    column tiles per row, scale 80**-0.5), causal and non-causal, and at
-    the VLM's cross-attention calls: non-causal over 576 keys, a decode
-    batch of 12 single queries and a 32-query chunk."""
+    """As above at hubert-xlarge's head dim of 80 (5 16-deep steps, scale
+    80**-0.5), causal and non-causal, and at the VLM's cross-attention
+    calls: non-causal over 576 keys, a decode batch of 12 single queries and
+    a 32-query chunk."""
     _, b, tq, tk, causal, window, q_offset = case
     h, hkv, d = 2, 2, 80
     q, k, v = _bf16((b, tq, h, d), 76), _bf16((b, tk, hkv, d), 77), _bf16((b, tk, hkv, d), 78)
-    keep = CHIP_SMOKE.flash_keep(torch, tq, tk, causal, window, q_offset)
-    got = _tensor_core_attention(q, k, v, keep.expand(b, tq, tk))
+    got = _wgmma_attention(q, k, v, causal, window, q_offset)
     want = flash_attention_ref(q, k, v, causal=causal, sliding_window=window,
                                q_offset=q_offset)
     print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("group", [1, 4, 6, 12])
+@pytest.mark.parametrize("case", CHIP_SMOKE.FLASH_CASES + CHIP_SMOKE.CROSS_CASES,
+                         ids=lambda c: c[0])
+def test_tensor_core_rounding_stays_inside_bf16_tol_flash_group_packed(case, group):
+    """The bf16 flash kernel with a KV head's G query heads packed into one
+    block's rows (G = 4: the VLM's cross decode; 6: mixtral; 12:
+    command-r-plus, where 128 / G leaves spare rows), one KV head, at
+    narrow heads: inside the bf16 tolerance."""
+    _, b, tq, tk, causal, window, q_offset = case
+    h, hkv, d = group, 1, 64
+    q, k, v = _bf16((b, tq, h, d), 79), _bf16((b, tk, hkv, d), 80), _bf16((b, tk, hkv, d), 81)
+    got = _wgmma_attention(q, k, v, causal, window, q_offset)
+    want = flash_attention_ref(q, k, v, causal=causal, sliding_window=window,
+                               q_offset=q_offset)
+    print(f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("group", [1, 4, 6, 7, 12, 64])
+def test_flash_block_positions_pack_whole_groups(group, d):
+    """The wrapper's row plan for the bf16 kernel: a block has two
+    warpgroups of 64 rows (one at D = 256) and takes as many whole query
+    positions of a KV head's group of G heads as fit, leaving fewer than G
+    rows spare."""
+    rows = flash_attention.block_rows(d)
+    assert rows == (64 if d == 256 else 128)
+    pos = flash_attention.block_positions(group, d)
+    assert pos * group <= rows < (pos + 1) * group
+
+
+@pytest.mark.parametrize("group, d", [(0, 128), (129, 128), (65, 256)])
+def test_flash_block_positions_refuse_a_group_past_the_rows(group, d):
+    """A group of no head, or of more query heads than a block has rows,
+    is refused with a ValueError: the kernel would serve no position."""
+    with pytest.raises(ValueError, match="does not fit"):
+        flash_attention.block_positions(group, d)
 
 
 def test_flash_wrapper_refuses_other_head_dims():
