@@ -13,9 +13,9 @@ any failure exits non-zero before the result lines:
 1. Device: the card's name and power limit, TF32 off, kernel build time,
    and ptxas's registers, spills and static shared memory of every kernel
    instantiation (a bf16 tensor-core or split-merge kernel that spills
-   fails), and per flash attention instantiation its warpgroup products
-   (``HGMMA``) and TMA tile loads (``UTMALDG``) in ``cuobjdump -sass`` (a
-   bf16 flash kernel with none of either fails).
+   fails), and per flash and ragged attention instantiation its warpgroup
+   products (``HGMMA``) and TMA tile loads (``UTMALDG``) in ``cuobjdump
+   -sass`` (a bf16 flash or ragged kernel with none of either fails).
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at fp32 and bf16, at the attention shapes of ``ATTN_SHAPES``
    (Llama-2-7B, Qwen2-0.5B, gemma-7b's head dim 256, yi-34b's and
@@ -24,7 +24,11 @@ any failure exits non-zero before the result lines:
    calls, ``CROSS_CASES``), with cases at the
    tensor-core kernels' 16-row and 64-key edges, and decode batches that
    the bf16 decode kernel cuts into several key splits (``DECODE_CASES``;
-   each logs its splits).
+   each logs its splits), and ragged batches that the bf16 ragged kernel
+   cuts into key splits, some of which keep no key (``RAGGED_CASES``), and
+   at bf16 on pages of 8, 24, 64 and 256 tokens (``RAGGED_PAGE_CASES``).
+   Each paged call logs the splits and merges its wrapper launched
+   (``.last_splits``), held to the shape rule.
 3. Llama-2-7B at full width (bf16, 32 layers, random weights from a seed)
    served through ``repro_torch.launch.serve.run_real`` on the fused path:
    online streams arrive while an offline batch job runs on a pool small
@@ -64,9 +68,11 @@ any failure exits non-zero before the result lines:
    own beside the replaced mma.sync kernel's on the same input, a figure
    copied from PERF.md (PREVIOUS_FLASH_MS), never put in the JSON line; the
    bf16 flash call's host cost, its three tensor maps' encoding included,
-   is its ``enqueue_ms``.  The decode kernel adds its
-   key splits and split-merge launches; the gather, unchanged since it was
-   ported, is also timed by the Timer of earlier runs, as the control.
+   is its ``enqueue_ms``.  The decode and ragged kernels add their key
+   splits and split-merge launches, and each bf16 ragged time is logged
+   beside the replaced mma.sync kernel's F1 time (PREVIOUS_RAGGED_MS), as
+   the flash times are; the gather, unchanged since it was ported, is also
+   timed by the Timer of earlier runs, as the control.
 6. Calibration: ``RealEngine.calibrate()`` on a bf16 engine of each path
    (``--calibrate``), the fitted profile, and phase 3's workload served on
    each calibrated engine: measured against predicted seconds per
@@ -399,13 +405,12 @@ def timed(timer, fn, **kw) -> dict:
 # ------------------------------------------------------------ phase 2 inputs
 def attention_case(torch, dtype, h, hkv, d, softcap, seed,
                    q_lens=(32, 1, 9, 1, 1, 0), kv_lens=(32 + 131, 50, 9, 300, 1, 0),
-                   qmax=32):
+                   qmax=32, page=16):
     """A ragged batch as the engine builds it.  The default is a mixed
     batch: prefill chunks, q_len = 1 decodes, a padded sequence with
     kv_len = 0, padded query slots at q_pos = 0, -1 table entries past each
     sequence's pages."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    page = 16
     s = len(q_lens)
     m = max(-(-kv // page) for kv in kv_lens) + 2
     n = s * m + 1
@@ -425,7 +430,12 @@ def attention_case(torch, dtype, h, hkv, d, softcap, seed,
 
 # ragged_paged_attention cases of phase 2 (attention_case arguments); each
 # ends with a padded sequence (kv_len = 0) whose rows must be exactly 0.
-# Rounds of the tensor-core kernel are 64 keys (4 pages of 16).
+# K/V tiles of the bf16 kernel are 64 keys (4 pages of 16).  The last two
+# are cut into key splits at every ATTN_SHAPES entry (``ragged_splits``:
+# few (sequence, KV head, row tile) jobs, tables of 1040 keys): a 20-token
+# chunk at the end of a 1000-token context across splits, a decode whose
+# later splits keep none of its keys, and a sequence whose every split but
+# the first is a job with no key.
 RAGGED_CASES = {
     "mixed batch": {},
     "Qmax * G off 16 rows": dict(q_lens=(3, 1, 2, 0), kv_lens=(40, 17, 70, 0), qmax=3),
@@ -433,6 +443,21 @@ RAGGED_CASES = {
     "chunk across two rounds": dict(q_lens=(32, 20, 0), kv_lens=(80, 70, 0), qmax=32),
     "warp tiles of padded slots only": dict(q_lens=(1, 48, 2, 0), kv_lens=(200, 48, 130, 0),
                                             qmax=48),
+    "key splits": dict(q_lens=(1, 20, 1, 0), kv_lens=(384, 1000, 700, 0), qmax=20),
+    "splits that keep no key": dict(q_lens=(1, 1, 0), kv_lens=(1000, 40, 0), qmax=1),
+}
+
+# The bf16 ragged kernel's K/V boxes are gcd(page, 64) rows of one page, 64 /
+# gcd of them to a 64-key tile, so phase 2 also runs it (bf16 only: the
+# fp32 kernel's page ring does not fit at page 256) at pages other than the
+# engine's 16: 8-row boxes, a page of 24 that straddles tiles, one box a
+# tile, and pages of four tiles; the two of RAGGED_CASES["key splits"]'s
+# lengths are cut into key splits at every ATTN_SHAPES entry.
+RAGGED_PAGE_CASES = {
+    "page 8 across key splits": dict(page=8, **RAGGED_CASES["key splits"]),
+    "page 24": dict(page=24, q_lens=(32, 1, 9, 0), kv_lens=(163, 50, 300, 0), qmax=32),
+    "page 64": dict(page=64, q_lens=(32, 1, 9, 0), kv_lens=(163, 50, 300, 0), qmax=32),
+    "page 256 across key splits": dict(page=256, **RAGGED_CASES["key splits"]),
 }
 
 
@@ -473,9 +498,25 @@ DECODE_CASES = {
 }
 
 
+def ragged_splits_of(torch, rpa, q, kp, tb):
+    """(splits, keys per split) that ``ragged_paged_attention`` should use
+    on these inputs by the shape rule: the host's choice from shapes for
+    bf16; fp32 does not split.  Phase 2 holds the wrapper's recorded plan
+    (``.last_splits``) to it."""
+    if q.dtype != torch.bfloat16:
+        return 1, tb.shape[1] * kp.shape[1]
+    s, qmax, h, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    tiles = rpa.ragged_row_tiles(h // kp.shape[2], qmax)[1]
+    return rpa.ragged_splits(s, kp.shape[2], tiles, tb.shape[1] * kp.shape[1],
+                             sms * rpa.ragged_pipes(d))
+
+
 def decode_splits_of(torch, rpa, q, kp, tb):
-    """(splits, keys per split) that ``paged_attention`` uses on these
-    inputs: the host's choice from shapes for bf16; fp32 does not split."""
+    """(splits, keys per split) that ``paged_attention`` should use on these
+    inputs by the shape rule: the host's choice from shapes for bf16; fp32
+    does not split.  Phase 2 holds the wrapper's recorded plan
+    (``.last_splits``) to it."""
     if q.dtype != torch.bfloat16:
         return 1, tb.shape[1] * kp.shape[1]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -580,11 +621,11 @@ def check_kernels(torch, ops, rpa, cg, fa):
                     merges = rpa.paged_attention.merge_launches
                     got = rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)
                     merges = rpa.paged_attention.merge_launches - merges
+                    splits, keys = rpa.paged_attention.last_splits
                     want = rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
                     zero = got[lens == 0].float().abs().max().item()
-                    splits, keys = decode_splits_of(torch, rpa, q, kp, tb)
                     log(f"  paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} {case} "
                         f"(seq_lens={lens.tolist()} page={kp.shape[1]} table={tb.shape[1]} "
                         f"splits={splits} of {keys} keys, merges={merges}) softcap={cap:g}: "
@@ -593,21 +634,40 @@ def check_kernels(torch, ops, rpa, cg, fa):
                         raise AssertionError(f"paged_attention disagrees ({dname}, {arch}, {case})")
                     if merges != (splits > 1):
                         raise AssertionError(f"paged_attention: {merges} merges for {splits} splits")
-                for case, kw in RAGGED_CASES.items():
+                    rule = decode_splits_of(torch, rpa, q, kp, tb)
+                    if (splits, keys) != rule:
+                        raise AssertionError(f"paged_attention launched {splits} splits of "
+                                             f"{keys} keys, the shape rule says {rule}")
+                cases = dict(RAGGED_CASES, **(RAGGED_PAGE_CASES if dtype == torch.bfloat16
+                                              else {}))
+                for case, kw in cases.items():
                     q, kp, vp, tb, qp, kvl, cap = attention_case(torch, dtype, h, hkv, d, cap,
                                                                  1, **kw)
+                    merges = rpa.ragged_paged_attention.merge_launches
                     got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
+                    merges = rpa.ragged_paged_attention.merge_launches - merges
+                    splits, keys = rpa.ragged_paged_attention.last_splits
                     want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl,
                                                           logit_softcap=cap)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
                     zero = got[-1].float().abs().max().item()
                     log(f"  ragged_paged_attention {dname} {arch} H={h} Hkv={hkv} D={d} {case} "
-                        f"(Qmax={q.shape[1]}) softcap={cap:g}: max_abs_err={err:.3e} "
+                        f"(Qmax={q.shape[1]} page={kp.shape[1]} table={tb.shape[1]} "
+                        f"splits={splits} of {keys} "
+                        f"keys, merges={merges}) softcap={cap:g}: max_abs_err={err:.3e} "
                         f"kv_len=0 rows max={zero:g}")
                     if not torch.allclose(got.float(), want.float(), **TOL[dname]) or zero != 0:
                         raise AssertionError(f"ragged_paged_attention disagrees ({dname}, {arch}, "
                                              f"{case})")
+                    if merges != (splits > 1) or (dtype == torch.bfloat16 and "split" in case
+                                                  and splits == 1):
+                        raise AssertionError(f"ragged_paged_attention {case}: {merges} merges "
+                                             f"for {splits} splits")
+                    rule = ragged_splits_of(torch, rpa, q, kp, tb)
+                    if (splits, keys) != rule:
+                        raise AssertionError(f"ragged_paged_attention launched {splits} splits "
+                                             f"of {keys} keys, the shape rule says {rule}")
             g = torch.Generator(device="cuda").manual_seed(2)
             pool = torch.randn((4, 33, 16, hkv, d), generator=g, device="cuda").to(dtype)
             ids = torch.tensor([5, 2, 32, 9, 31, 32, 32, 0], dtype=torch.int32, device="cuda")
@@ -799,6 +859,8 @@ def run_serve(torch, ops, serve_mod, tf, argv, mesh=None):
         res = serve(serve_mod, argv, mesh)
         counts = ops.launch_counts()
         counts["paged_attention merges"] = ops.KERNELS["paged_attention"].merge_launches
+        counts["ragged_paged_attention merges"] = (
+            ops.KERNELS["ragged_paged_attention"].merge_launches)
     finally:
         for name, cap in caps.items():
             setattr(ops, name, cap.fn)
@@ -1064,6 +1126,7 @@ def attention_entry(torch, rpa, args, spec, timer):
     q, kp, vp, tb, qp, kvl, cap = args
     dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
     got = rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
+    splits, keys = rpa.ragged_paged_attention.last_splits  # the plan this call launched
     want = rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), **TOL[dname]):
@@ -1071,7 +1134,7 @@ def attention_entry(torch, rpa, args, spec, timer):
                              f"kv_lens={kvl.tolist()}: max_abs_err={err:.3e}")
     bound, by = attention_bound(torch, q, kp, tb, qp, kvl, PEAK_FLOPS[dname], spec.hbm_bw)
     return {
-        "max_abs_err": err,
+        "max_abs_err": err, "splits": splits, "split_keys": keys,
         **timed(timer, lambda: rpa.ragged_paged_attention(q, kp, vp, tb, qp, kvl,
                                                           logit_softcap=cap)),
         "plain_ms": timer.ms(lambda: rpa.ragged_paged_attention_ref(q, kp, vp, tb, qp, kvl, logit_softcap=cap)),
@@ -1088,13 +1151,13 @@ def decode_entry(torch, rpa, args, spec, timer):
     q, kp, vp, tb, lens, cap = args
     dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
     got = rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)
+    splits, keys = rpa.paged_attention.last_splits  # the plan this call launched
     want = rpa.paged_attention_ref(q, kp, vp, tb, lens, logit_softcap=cap)
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), **TOL[dname]):
         raise AssertionError(f"paged_attention disagrees at {tuple(q.shape)} "
                              f"seq_lens={lens.tolist()}: max_abs_err={err:.3e}")
     bound, by = decode_bound(torch, q, kp, tb, lens, PEAK_FLOPS[dname], spec.hbm_bw)
-    splits, keys = decode_splits_of(torch, rpa, q, kp, tb)
     return {
         "max_abs_err": err, "splits": splits, "split_keys": keys,
         **timed(timer, lambda: rpa.paged_attention(q, kp, vp, tb, lens, logit_softcap=cap)),
@@ -1117,12 +1180,14 @@ def long_context_entries(torch, rpa, spec, timer, shape=(32, 32, 128), qwen=True
     cases = [(case, kw, shape) for case, kw in LONG_CASES.items()]
     if qwen:
         cases.append(("qwen2-0.5b decode", LONG_CASES["decode"], (14, 2, 64)))
+    arch = "gemma-7b" if shape[2] == 256 else "llama-2-7b"
     for case, kw, (h, hkv, d) in cases:
         args = attention_case(torch, torch.bfloat16, h, hkv, d, 0.0, 3, **kw)
         lens = f"{min(kw['kv_lens'])}..{max(kw['kv_lens'])}"
         entry = {"case": case, **attention_entry(torch, rpa, args, spec, timer)}
         entry["shape"]["kv_lens"] = lens
         log(f"  ragged_paged_attention, {case}: {entry}")
+        log_previous_ragged(case if case.startswith("qwen") else f"{arch} {case}", entry)
         ragged.append(entry)
         if kw["qmax"] == 1:
             q, kp, vp, tb, _qp, kvl, cap = args
@@ -1149,14 +1214,31 @@ PREVIOUS_FLASH_MS = {
 }
 
 
-def log_previous(key, entry):
-    """Logs a flash entry's time beside the replaced kernel's on the same
-    input (PREVIOUS_FLASH_MS, where it was timed)."""
-    was = PREVIOUS_FLASH_MS.get(key)
+# The same for the mma.sync bf16 ragged kernel that the wgmma one replaced:
+# its times in run F1 (PERF.md row 1; row 5 for one shard's launch and the
+# sharded call at tp 2), on the inputs phase 5, 8 and 10(d) time.
+PREVIOUS_RAGGED_MS = {
+    "llama-2-7b fused": 0.0207, "llama-2-7b decode": 0.3164,
+    "llama-2-7b prefill chunks + decodes": 0.3565, "qwen2-0.5b decode": 0.1162,
+    "gemma-7b fused": 0.0223, "gemma-7b decode": 0.5362,
+    "gemma-7b prefill chunks + decodes": 0.5810,
+    "tp=2 shard launch": 0.0150, "tp=2 sharded call": 0.0405,
+}
+
+
+def log_previous(key, entry, name="flash_attention", previous=PREVIOUS_FLASH_MS, ms="ms"):
+    """Logs a flash (or ragged) entry's time beside the replaced kernel's on
+    the same input (PREVIOUS_FLASH_MS or PREVIOUS_RAGGED_MS, where it was
+    timed)."""
+    was = previous.get(key)
     if was is not None:
-        log(f"  flash_attention, {key}: {entry['ms']:.5f} ms against the replaced mma.sync "
+        log(f"  {name}, {key}: {entry[ms]:.5f} ms against the replaced mma.sync "
             f"kernel's {was} ms (copied from PERF.md, not measured in this run): "
-            f"{was / entry['ms']:.2f}x faster")
+            f"{was / entry[ms]:.2f}x faster")
+
+
+def log_previous_ragged(key, entry, ms="ms"):
+    log_previous(key, entry, "ragged_paged_attention", PREVIOUS_RAGGED_MS, ms)
 
 
 def flash_keep(torch, tq, tk, causal, window, q_offset):
@@ -1302,6 +1384,7 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
                 args, split_args, contiguous_args, spec, timer):
     main = attention_entry(torch, rpa, args["ragged_paged_attention"], spec, timer)
     log(f"  ragged_paged_attention, heaviest main-path call: {main}")
+    log_previous_ragged("llama-2-7b fused", main)
     dmain = decode_entry(torch, rpa, split_args["paged_attention"], spec, timer)
     log(f"  paged_attention, heaviest split-path call: {dmain}")
     long_ragged, long_decode = long_context_entries(torch, rpa, spec, timer)
@@ -1310,7 +1393,8 @@ def kernel_line(torch, rpa, cg, fa, counts, split_counts, contiguous_counts, ful
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/ragged_paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:217",
-        "launches": counts["ragged_paged_attention"], **main,
+        "launches": counts["ragged_paged_attention"],
+        "merge_launches": counts["ragged_paged_attention merges"], **main,
         "library_ms": None, "shape": shape, "long_context": long_ragged,
     }, {
         "name": "paged_attention", "route": "cuda",
@@ -2049,6 +2133,7 @@ def sharded_entry(torch, rpa, name, args, counts, spec, timer):
     one_ref = rpa.ragged_paged_attention_ref if ragged else rpa.paged_attention_ref
     head_axis = 2 if ragged else 1
     got = fn(q, kp, vp, tb, *rest, mesh, logit_softcap=cap)
+    splits_per_shard = one.last_splits[0]  # the plan of this call's (last) shard launch
     want = one_ref(q, full_heads(torch, kp), full_heads(torch, vp), tb, *rest, logit_softcap=cap)
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), **TOL[dname]):
@@ -2074,9 +2159,11 @@ def sharded_entry(torch, rpa, name, args, counts, spec, timer):
                   "shard_pool": list(kp.parts[0].shape), "tables": list(tb.shape),
                   "lens": rest[-1].tolist(), "dtype": dname},
     }
-    if not ragged:
-        entry["splits_per_shard"] = decode_splits_of(torch, rpa, q0, kp.parts[0], tb)[0]
+    entry["splits_per_shard"] = splits_per_shard
     log(f"  {name}, heaviest tp={mesh.tp} call: {entry}")
+    if ragged:
+        log_previous_ragged(f"tp={mesh.tp} shard launch", entry, "shard_ms")
+        log_previous_ragged(f"tp={mesh.tp} sharded call", entry)
     return entry
 
 
@@ -2465,12 +2552,14 @@ def head_dim_256_entries(torch, rpa, cg, fa, serves, full_launches, spec, timer,
         serves[p] for p in PATHS)
     main = attention_entry(torch, rpa, args["ragged_paged_attention"], spec, timer)
     log(f"  ragged_paged_attention D=256, heaviest gemma-7b fused call: {main}")
+    log_previous_ragged("gemma-7b fused", main)
     dmain = decode_entry(torch, rpa, split_args["paged_attention"], spec, timer)
     log(f"  paged_attention D=256, heaviest gemma-7b split call: {dmain}")
     long_ragged, long_decode = long_context_entries(torch, rpa, spec, timer, GEMMA_SHAPE,
                                                     qwen=False)
     by_name["ragged_paged_attention"]["head_dim_256"] = {
-        "arch": "gemma-7b", "launches": counts["ragged_paged_attention"], **main,
+        "arch": "gemma-7b", "launches": counts["ragged_paged_attention"],
+        "merge_launches": counts["ragged_paged_attention merges"], **main,
         "library_ms": None, "long_context": long_ragged}
     by_name["paged_attention"]["head_dim_256"] = {
         "arch": "gemma-7b", "launches": split_counts["paged_attention"],
@@ -3194,6 +3283,14 @@ def main() -> int:
     wg = {inst: c for inst, c in flash_sass.items() if "_wg_kernel<" in inst}
     if len(wg) != 4 or not all(c["HGMMA"] and c["UTMALDG"] for c in wg.values()):
         raise AssertionError(f"flash_attention: the bf16 kernels lack wgmma or TMA loads: {wg}")
+    ragged_sass = sass_counts(build, "ragged_paged_attention")
+    for inst, c in ragged_sass.items():
+        log(f"    ragged_paged_attention SASS: {inst}: {c}")
+        builds.setdefault("ragged_paged_attention", {}).setdefault(inst, {})["sass"] = c
+    wg = {inst: c for inst, c in ragged_sass.items() if "_wg_kernel<" in inst}
+    if len(wg) != 3 or not all(c["HGMMA"] and c["UTMALDG"] for c in wg.values()):
+        raise AssertionError(f"ragged_paged_attention: the bf16 kernels lack wgmma or TMA "
+                             f"loads: {wg}")
 
     log("[2] kernels vs their plain versions on the card")
     check_kernels(torch, ops, rpa, cg, fa)

@@ -1,6 +1,7 @@
-// The bf16 tensor-core attention tile of ragged_paged_attention.cu (the
-// flash kernel takes only its quad reductions and bf16 packing): device
-// functions only, no kernel and no C interface.
+// The bf16 tensor-core attention tile of the decode kernel,
+// paged_attention.cu (the Hopper kernels of wg_attention.cuh take only its
+// quad and warp reductions and bf16 packing): device functions only, no
+// kernel and no C interface.
 //
 // One warp owns 16 query rows.  At D <= 128 its q rows stay in registers
 // as the A-fragments of mma.sync.m16n8k16 (bf16 inputs, fp32 accumulation);

@@ -69,6 +69,10 @@
 // traps instead of hanging the card.  No second kernel for short calls:
 // this one is faster than the mma.sync kernel it replaced on every timed
 // input, the contiguous serve's 31-query chunks included (PERF.md, row 4).
+// The consumers' tile functions (S, softmax, P, P V) and the maps' encoding
+// live in csrc/wg_attention.cuh, shared with the bf16 ragged kernel.  Both
+// versions set their shared-memory attribute once per device, not once per
+// process: it belongs to the device's context.
 //
 // fp32 (flash_kernel): the CUDA cores, kept as it is to hold the port
 // against the reference at fp32 (a TF32 product would change those
@@ -84,22 +88,27 @@
 // D = 80 (20 chunks) lanes 0-3 take three and lanes 4-7 two.
 //
 // Head dims: 64, 128, 256 and 80 (hubert-xlarge's encoder, non-causal).
-#include <cuda.h>  // CUtensorMap and its enums only: no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <utility>
+#include <atomic>
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
+#include "wg_attention.cuh"
 
 namespace {
 
 using attn_tile::cp_async16;
 using attn_tile::cp_async_commit;
 using attn_tile::cp_async_wait;
+using wg::encode_map;
+using wg::pack_p;
+using wg::pv_product;
+using wg::rescale_o;
+using wg::softmax_tile;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 64;                             // query rows per block
@@ -365,12 +374,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int tq
            int q_offset, int causal, int window, float scale, float softcap,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
-  static bool attribute_set = false;  // once per instantiation
-  if (smem > 48 * 1024 && !attribute_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
+  static std::atomic<unsigned long long> devices{0};  // those the attribute is set on
+  if (smem > 48 * 1024) {
+    const int err = wg::smem_attribute(devices, (const void*)flash_kernel<T, D>, (int)smem);
+    if (err != 0) return err;
   }
   dim3 grid((tq + kRows - 1) / kRows, h, b);
   flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
@@ -398,10 +405,10 @@ struct WgTile {
   static constexpr int kRows = 64 * kWgs;
   static constexpr int kConsumers = 128 * kWgs;
   static constexpr int kThreads = kConsumers + 32;
-  static constexpr int kW = D % 64 == 0 ? 64 : 16;  // bf16 columns per swizzle atom
-  static constexpr int kSpan = 2 * kW;              // bytes of an atom row (128 or 32)
-  static constexpr int kLayout = kW == 64 ? hopper::kSwizzle128B : hopper::kSwizzle32B;
-  static constexpr int kAtoms = D / kW;
+  static constexpr int kW = wg::Atom<D>::kW;        // bf16 columns per swizzle atom
+  static constexpr int kSpan = wg::Atom<D>::kSpan;  // bytes of an atom row (128 or 32)
+  static constexpr int kLayout = wg::Atom<D>::kLayout;
+  static constexpr int kAtoms = wg::Atom<D>::kAtoms;
   static constexpr int kN = 64;  // keys per K/V tile
   static constexpr int kQBytes = kRows * D * 2;
   static constexpr int kTileBytes = kN * D * 2;  // K or V of one stage
@@ -464,145 +471,6 @@ __device__ __forceinline__ int wg_job(int r, int jobs) {
   const int n = gridDim.x, x = blockIdx.x;
   const int job = r * n + (r & 1 ? n - 1 - x : x);
   return job < jobs ? job : -1;
-}
-
-// Scores of one K/V tile in a consumer's registers (element 4 j + e: row
-// e / 2 of the thread's two, key k0 + 8 j + 2 (lane % 4) + e % 2), made
-// ready for the online softmax: with a softcap, tanh(s * scale / cap) * cap
-// times log2(e); without, left raw (the softmax scales them in its exp2).
-// Masked keys become -inf (only on a tile some row keeps in part: kEdge).
-// Returns each row's max, in the log2-scaled units.
-template <int kN, bool kCap, bool kEdge>
-__device__ __forceinline__ void tile_scores(float (&sc)[kN / 2], float (&mx)[2], int k0,
-                                            int lane, const int (&lo)[2], const int (&hi)[2],
-                                            float qk_scale, float cap_in, float cap_out) {
-  mx[0] = mx[1] = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      float z = sc[4 * j + e];
-      if (kCap) z = tanhf(z * cap_in) * cap_out;
-      if (kEdge) {
-        const int key = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
-        if (key < lo[r] || key >= hi[r]) z = -INFINITY;
-      }
-      sc[4 * j + e] = z;
-      mx[r] = fmaxf(mx[r], z);
-    }
-  if (!kCap) {
-    mx[0] *= qk_scale;  // qk_scale > 0 keeps the order, and -inf
-    mx[1] *= qk_scale;
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S = Q K^T of one tile into a consumer's registers: D / 16 steps of 16,
-// q and K both K-major in their swizzled atom columns (step kk reads atom
-// column 16 kk / W at byte 2 (16 kk % W) of its rows).
-template <int D, int kN, int... kk>
-__device__ __forceinline__ void qk_steps(float (&sc)[kN / 2], uint64_t dq, uint64_t dk,
-                                         std::integer_sequence<int, kk...>) {
-  using C = WgTile<D>;
-  constexpr int kW = C::kW, kSpan = C::kSpan;
-  (hopper::SS<kN>::template mma<(16 * kk / kW * C::kRows * kSpan + 32 * kk % (2 * kW)) / 16,
-                                (16 * kk / kW * kN * kSpan + 32 * kk % (2 * kW)) / 16>(
-       sc, dq, dk, kk > 0),
-   ...);
-}
-
-template <int D, int kN>
-__device__ __forceinline__ void qk_product(float (&sc)[kN / 2], uint32_t q_wg, uint32_t ks) {
-  using C = WgTile<D>;
-  qk_steps<D, kN>(sc, hopper::desc(q_wg, 16, 8 * C::kSpan, C::kLayout),
-                  hopper::desc(ks, 16, 8 * C::kSpan, C::kLayout),
-                  std::make_integer_sequence<int, D / 16>());
-}
-
-// O += P V of one tile: P from registers, V as it lies (keys x D), read
-// transposed by its descriptor, 16 keys (16 rows of every atom column) a step.
-template <int D, int kN, int... c>
-__device__ __forceinline__ void pv_steps(float (&o)[D / 2], const uint32_t (&p)[kN / 16][4],
-                                         uint64_t dv, std::integer_sequence<int, c...>) {
-  (hopper::RS<D>::template mma<c * WgTile<D>::kSpan>(o, p[c], dv), ...);
-}
-
-template <int D, int kN>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p)[kN / 16][4],
-                                           uint32_t vs) {
-  using C = WgTile<D>;
-  pv_steps<D, kN>(o, p, hopper::desc(vs, kN * C::kSpan, 8 * C::kSpan, C::kLayout),
-                  std::make_integer_sequence<int, kN / 16>());
-}
-
-// The online softmax of one tile's scores: the running max m (log2 units),
-// alpha = 2^(m_old - m_new) for O and l, and the tile's probabilities
-// 2^(score - m_new), fp32, in place of the scores; l gains their sum.
-template <int kN>
-__device__ __forceinline__ void softmax_tile(float (&sc)[kN / 2], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], int k0, int lane,
-                                             const int (&lo)[2], const int (&hi)[2],
-                                             int lo_max, int hi_min, float qk_scale,
-                                             float softcap, float cap_in, float cap_out) {
-  const bool edge = k0 < lo_max || k0 + kN > hi_min;  // some row keeps part of the tile
-  float mx[2];
-  if (softcap != 0.f) {
-    if (edge)
-      tile_scores<kN, true, true>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
-    else
-      tile_scores<kN, true, false>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
-  } else {
-    if (edge)
-      tile_scores<kN, false, true>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
-    else
-      tile_scores<kN, false, false>(sc, mx, k0, lane, lo, hi, qk_scale, cap_in, cap_out);
-  }
-  const float f = softcap != 0.f ? 1.f : qk_scale;  // the scores' factor into log2 units
-  float mu[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m[r], attn_tile::quad_max(mx[r]));
-    mu[r] = m_new == -INFINITY ? 0.f : m_new;  // no kept key yet: 2^-inf = 0
-    alpha[r] = ex2(m[r] - mu[r]);
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = ex2(fmaf(sc[4 * j + e], f, -mu[e >> 1]));
-      sc[4 * j + e] = x;
-      l[e >> 1] += x;
-    }
-}
-
-template <int D>
-__device__ __forceinline__ void rescale_o(float (&o)[D / 2], const float (&alpha)[2]) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    o[4 * j] *= alpha[0];
-    o[4 * j + 1] *= alpha[0];
-    o[4 * j + 2] *= alpha[1];
-    o[4 * j + 3] *= alpha[1];
-  }
-}
-
-// P to bf16 straight from the S registers: keys 16 c .. 16 c + 15 of the
-// tile are registers 8 c .. 8 c + 7, i.e. the A operand of one 16-deep step.
-template <int kN>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[kN / 16][4], const float (&sc)[kN / 2]) {
-#pragma unroll
-  for (int c = 0; c < kN / 16; ++c)
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      p[c][x] = attn_tile::pack_bf16(sc[8 * c + 2 * x], sc[8 * c + 2 * x + 1]);
 }
 
 // The producer: one thread issues every TMA copy.  Per job, once the
@@ -713,7 +581,7 @@ __device__ __forceinline__ void consume_job(const WgSmem<D>& sm, const WgJob& jb
     int prev = stage(ta);
     hopper::mbar_wait(sm.full(prev), phase(ta));
     hopper::wgmma_fence();
-    qk_product<D, kN>(sc, q_wg, sm.k + prev * C::kTileBytes);
+    wg::qk_product<D, kN, C::kRows>(sc, q_wg, sm.k + prev * C::kTileBytes);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
@@ -727,7 +595,7 @@ __device__ __forceinline__ void consume_job(const WgSmem<D>& sm, const WgJob& jb
       const int s = stage(t);
       hopper::mbar_wait(sm.full(s), phase(t));
       hopper::wgmma_fence();
-      qk_product<D, kN>(sc, q_wg, sm.k + s * C::kTileBytes);
+      wg::qk_product<D, kN, C::kRows>(sc, q_wg, sm.k + s * C::kTileBytes);
       hopper::wgmma_commit();
       pv_product<D, kN>(o, p, sm.v + prev * C::kTileBytes);
       hopper::wgmma_commit();
@@ -846,51 +714,6 @@ __global__ void __launch_bounds__(WgTile<D>::kThreads, 1)
              causal, window, scale, softcap);
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime: the library
-// links no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (B, T, H, D) bf16 tensor whose (T, H, D) part is contiguous, batch
-// stride `bstride` elements, as the 4-d map {D, H, T, B} (innermost first)
-// read in boxes of {w, heads, rows, 1}.  Rows past T read as zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d,
-                long long bstride, int w, int heads, int rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  t = t > 0 ? t : 1;  // a map needs extents of at least 1; no tile reads past Tk
-  const long long tok = (long long)h * d;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)tok * 2,
-                                 (cuuint64_t)(b > 1 ? bstride : t * tok) * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)w, (cuuint32_t)heads, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int tq, int tk,
               int h, int hkv, long long q_bstride, long long kv_bstride, int positions,
@@ -899,13 +722,9 @@ int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int
   using C = WgTile<D>;
   const int group = h / hkv;
   if (positions < 1 || positions * group > C::kRows) return (int)cudaErrorInvalidValue;
-  static bool attribute_set = false;  // once per instantiation
-  if (!attribute_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_wg_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
-  }
+  static std::atomic<unsigned long long> devices{0};  // those the attribute is set on
+  const int attr = wg::smem_attribute(devices, (const void*)flash_wg_kernel<D>, C::kSmem);
+  if (attr != 0) return attr;
   const CUtensorMapSwizzle swizzle =
       C::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap q_map, k_map, v_map;

@@ -25,8 +25,8 @@
 // HBM rate (3.35 TB/s).
 //
 // bf16 (paged_tc_kernel, merge_kernel): one block of 4 warps per (KV head,
-// sequence, key split) on the tensor cores, through the warp tile that the
-// ragged and flash kernels share (attention_tile.cuh: mma.sync bf16, fp32
+// sequence, key split) on the tensor cores, through the warp tile of
+// attention_tile.cuh (mma.sync bf16, fp32
 // online softmax in registers, P rounded to bf16 before P V; q's fragments
 // read from the shared q rows per 16-deep chunk at D = 256).  The tile's
 // 16 rows are the G query heads of the (sequence, KV head) -- G = 1 for
@@ -53,8 +53,9 @@
 // (from shapes alone, never from seq_lens: the split path reads nothing
 // back).  Each split block writes its unnormalised O, its max m and sum l
 // in fp32 to a workspace, a split past seq_len writes l = 0, and
-// merge_kernel combines the splits by their log-sum-exp and writes the
-// output; with one split the block writes the output itself.
+// merge_kernel (split_merge.cuh, shared with the bf16 ragged kernel)
+// combines the splits by their log-sum-exp and writes the output; with one
+// split the block writes the output itself.
 //
 // fp32 (decode_kernel): the CUDA cores, kept as it is to hold the port
 // against the reference at fp32: one block per (KV head, sequence) holds
@@ -71,6 +72,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -329,7 +331,6 @@ constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kRoundKeys = attn_tile::kTileKeys;  // keys per round (and split unit)
 constexpr int kTcStages = 2;                       // rounds in the ring
 constexpr int kMaxTcGroup = 16 * kTcWarps;        // query heads per KV head
-constexpr int kMergeThreads = 128;
 
 // 16-row groups of q a block stages: G = h / hkv rows.
 __host__ __device__ inline int q_groups(int g) { return (g + 15) / 16; }
@@ -529,45 +530,6 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
-// Combines the nsplit partials of each of `rows` = b_count * h rows:
-// out = sum_s O_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M the largest m_s of
-// the splits with l_s > 0; a split with l_s = 0 is skipped (its O_s was
-// never written), a row with no such split is 0.  D / 4 threads per row,
-// 4 outputs each.
-template <int D>
-__global__ void __launch_bounds__(kMergeThreads)
-    merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                 bf16* __restrict__ out, int rows, int nsplit) {
-  constexpr int kLanes = D / 4;
-  constexpr int kRowsPerBlock = kMergeThreads / kLanes;
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
-  const int c = (threadIdx.x % kLanes) * 4;
-  if (r >= rows) return;
-  const float2* ml = reinterpret_cast<const float2*>(part_ml);
-  float mx = -INFINITY;
-  for (int s = 0; s < nsplit; ++s) {
-    const float2 x = ml[(size_t)s * rows + r];
-    if (x.y > 0.f) mx = fmaxf(mx, x.x);
-  }
-  float l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < nsplit; ++s) {
-    const float2 x = ml[(size_t)s * rows + r];
-    if (!(x.y > 0.f)) continue;
-    const float a = exp2f(x.x - mx);
-    const float4 o = *reinterpret_cast<const float4*>(part_o + ((size_t)s * rows + r) * D + c);
-    l += x.y * a;
-    acc.x += a * o.x;
-    acc.y += a * o.y;
-    acc.z += a * o.z;
-    acc.w += a * o.w;
-  }
-  const float inv = l > 0.f ? 1.f / l : 0.f;
-  *reinterpret_cast<uint2*>(out + (size_t)r * D + c) =
-      make_uint2(attn_tile::pack_bf16(acc.x * inv, acc.y * inv),
-                 attn_tile::pack_bf16(acc.z * inv, acc.w * inv));
-}
-
 template <int D>
 int launch_tc(const void* q, const void* kp, const void* vp, const void* tables,
               const void* lens, void* out, void* part_o, void* part_ml, int b, int h,
@@ -591,11 +553,9 @@ int launch_tc(const void* q, const void* kp, const void* vp, const void* tables,
       split_keys, scale, softcap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
-  const int rows = b * h, per_block = kMergeThreads / (D / 4);
-  merge_kernel<D><<<(rows + per_block - 1) / per_block, kMergeThreads, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<bf16*>(out), rows, nsplit);
-  return (int)cudaGetLastError();
+  return split_merge::launch_merge<D>(static_cast<const float*>(part_o),
+                                      static_cast<const float*>(part_ml),
+                                      static_cast<bf16*>(out), b * h, nsplit, stream);
 }
 
 }  // namespace

@@ -119,7 +119,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Zeroes every kernel's launch count (and the decode kernel's count of
+    """Zeroes every kernel's launch count (and the paged kernels' counts of
     split-KV merges, and the sharded wrappers' other counts)."""
     for fn in KERNELS.values():
         fn.launches = 0
@@ -127,3 +127,4 @@ def reset_launch_counts() -> None:
             if hasattr(fn, c):
                 setattr(fn, c, 0)
     _attention.paged_attention.merge_launches = 0
+    _attention.ragged_paged_attention.merge_launches = 0

@@ -2,7 +2,10 @@
 replacing a Pallas TPU kernel of ``src/repro/kernels/paged_attention.py``:
 
 * ``ragged_paged_attention`` (``csrc/ragged_paged_attention.cu``): the fused
-  mixed batch of prefill chunks and decodes;
+  mixed batch of prefill chunks and decodes; bf16 by ``wgmma`` and TMA page
+  loads through the block table, with the keys split across jobs where few
+  (sequence, KV head, row tile) jobs would leave the card idle
+  (``ragged_splits``);
 * ``paged_attention`` (``csrc/paged_attention.cu``): decode, one query token
   per sequence (the split serving path); bf16 on the tensor cores, with
   the keys split across blocks where few (sequence, KV head) pairs would
@@ -10,6 +13,12 @@ replacing a Pallas TPU kernel of ``src/repro/kernels/paged_attention.py``:
 * ``ragged_paged_attention_sharded`` and ``paged_attention_sharded``: the
   two over a tensor-parallel mesh's KV-head shards (DESIGN.md §11), one
   launch of the kernel above per shard on its local heads.
+
+The bf16 ragged kernel reads q and the pools by TMA through tensor maps that
+its C function encodes at every call (host time in ``chip_smoke.py``'s
+``enqueue_ms``); it takes pages of a multiple of ``RAGGED_PAGE_ALIGN``
+tokens and groups of at most ``RAGGED_ROWS`` query heads, and the wrapper
+refuses others with a ``ValueError``.
 
 The wrappers take CUDA tensors only and launch their kernel or raise.  Their
 plain versions, ``ragged_paged_attention_ref`` and ``paged_attention_ref``
@@ -66,10 +75,54 @@ def _lib():
     fn = build.load("ragged_paged_attention").ragged_paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, ctypes.c_float, p]
         fn.restype = i
     return fn
+
+
+# The bf16 ragged kernel (ragged_wg_kernel): jobs of RAGGED_ROWS grouped
+# query rows, a row tile being RAGGED_ROWS // G query slots of a KV head's
+# G heads; one block per SM holding ragged_pipes(d) pipelines (a producer
+# warp and a consumer warpgroup each).  Its K/V boxes are gcd(page, 64) rows
+# of one page, so a page must be a multiple of RAGGED_PAGE_ALIGN.
+RAGGED_ROWS = 64
+RAGGED_PAGE_ALIGN = 8
+
+
+def ragged_pipes(d: int) -> int:
+    """Job pipelines per block of the bf16 ragged kernel: two consumer
+    warpgroups beside their producer warps at D <= 128, one at D = 256
+    (``RgTile::kPipes``)."""
+    return 1 if d > 128 else 2
+
+
+def ragged_row_tiles(group: int, qmax: int) -> Tuple[int, int]:
+    """(query slots per row tile, row tiles per (sequence, KV head)) of the
+    bf16 ragged kernel: ``RAGGED_ROWS // group`` slots of ``group`` heads
+    each, enough tiles to cover ``qmax`` slots."""
+    if not 1 <= group <= RAGGED_ROWS:
+        raise ValueError(f"ragged_paged_attention: a group of {group} query heads per KV "
+                         f"head does not fit the bf16 kernel's {RAGGED_ROWS} rows")
+    positions = RAGGED_ROWS // group
+    return positions, max(1, -(-qmax // positions))
+
+
+def ragged_splits(seqs: int, kv_heads: int, row_tiles: int, max_keys: int,
+                  slots: int) -> Tuple[int, int]:
+    """(number of splits, keys per split) of a bf16 ragged call over a table
+    of ``max_keys`` = M * page keys, from shapes alone (the fused path reads
+    nothing back): ``decode_splits``' rule for a kernel whose ``slots``
+    pipelines (SMs x ``ragged_pipes``) each take one (sequence, KV head, row
+    tile, split) job a round -- as many splits as let every (sequence, KV
+    head, row tile) fit one round, at most ``MAX_SPLITS``, each whole rounds
+    of 64 keys and no shorter than ``MIN_SPLIT_KEYS``.  Split i covers keys
+    [i * keys, (i + 1) * keys); together they cover [0, max_keys) once."""
+    rounds = max(1, -(-max_keys // SPLIT_ROUND))
+    jobs = max(1, seqs * kv_heads * row_tiles)
+    n = max(1, min(slots // jobs, max_keys // MIN_SPLIT_KEYS, MAX_SPLITS))
+    keys = SPLIT_ROUND * -(-rounds // n)
+    return max(1, -(-max_keys // keys)), keys
 
 
 def ragged_paged_attention(
@@ -82,12 +135,15 @@ def ragged_paged_attention(
     *,
     logit_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Launch the fused ragged paged-attention kernel. Returns (S, Qmax, H, D)
+    """Launch the fused ragged paged-attention kernel: ``ragged_wg_kernel``
+    for bf16 (then ``merge_kernel`` when the keys are split,
+    ``ragged_splits``), ``ragged_kernel`` for fp32.  Returns (S, Qmax, H, D)
     in the dtype of ``q``.  ``ragged_paged_attention.launches`` counts the
-    launches."""
+    calls that launched a kernel, ``.merge_launches`` the merge launches
+    among them, and ``.last_splits`` is (splits, keys per split) of the
+    latest launch.  Shapes, dtypes and the page size are checked before the
+    device, so a call the kernel cannot take raises on any tensor."""
     tensors = (q, k_pool, v_pool, block_tables, q_positions, kv_lens)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("ragged_paged_attention: all tensors must be on one CUDA device")
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"ragged_paged_attention: q/k/v must share float32 or bfloat16, got "
                          f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
@@ -114,26 +170,52 @@ def ragged_paged_attention(
     if s > 65535 or hkv > 65535:
         raise ValueError("ragged_paged_attention: too many sequences or KV heads for the grid")
     m = block_tables.shape[1]
-    _check_smem("ragged_paged_attention", _DTYPES[q.dtype], d, qmax * (h // hkv), page, m)
+    g = h // hkv
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and page % RAGGED_PAGE_ALIGN:
+        raise ValueError(f"ragged_paged_attention: bf16 pages must be a multiple of "
+                         f"{RAGGED_PAGE_ALIGN} tokens, got {page}")
+    row_tiles = ragged_row_tiles(g, qmax)[1] if bf16 else 1
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("ragged_paged_attention: all tensors must be on one CUDA device")
+    _check_smem("ragged_paged_attention", _DTYPES[q.dtype], d, qmax * g, page, m)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    nsplit, split_keys = 1, m * page
+    part_o = part_ml = None
+    if bf16:
+        nsplit, split_keys = ragged_splits(
+            s, hkv, row_tiles, m * page, _sm_count(q.device.index) * ragged_pipes(d))
+        if nsplit > 1:  # fp32 partials, from the caching allocator on this stream
+            part_o = torch.empty((nsplit, s, qmax, h, d), dtype=torch.float32, device=q.device)
+            part_ml = torch.empty((nsplit, s, qmax, h, 2), dtype=torch.float32,
+                                  device=q.device)
     # CUDA launches on the calling thread's current device: make it q's
     with torch.cuda.device(q.device):
         rc = _lib()(
             _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), q_positions.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), s, qmax, h, hkv, d, page, m,
+            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            s, qmax, h, hkv, d, page, n, m, nsplit, split_keys,
             float(d) ** -0.5, float(logit_softcap),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if rc == -1:
+        raise RuntimeError("ragged_paged_attention: cuTensorMapEncodeTiled refused a tensor map")
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention: CUDA error {rc} at launch")
     ragged_paged_attention.launches += 1
+    if nsplit > 1:
+        ragged_paged_attention.merge_launches += 1
+    ragged_paged_attention.last_splits = (nsplit, split_keys)
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.merge_launches = 0
+ragged_paged_attention.last_splits = None
 
 
 # fp32 (decode_kernel) keeps G * D fp32 accumulators in registers across
@@ -196,7 +278,9 @@ def paged_attention(
     bf16 (then ``merge_kernel`` when the keys are split), ``decode_kernel``
     for fp32.  Returns (B, H, D) in the dtype of ``q``.
     ``paged_attention.launches`` counts the calls that launched a kernel,
-    ``paged_attention.merge_launches`` the merge launches among them."""
+    ``paged_attention.merge_launches`` the merge launches among them, and
+    ``paged_attention.last_splits`` is (splits, keys per split) of the
+    latest launch."""
     tensors = (q, k_pool, v_pool, block_tables, seq_lens)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("paged_attention: all tensors must be on one CUDA device")
@@ -235,7 +319,7 @@ def paged_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    nsplit, split_keys = 1, SPLIT_ROUND
+    nsplit, split_keys = 1, m * page
     part_o = part_ml = None
     if q.dtype == torch.bfloat16:
         nsplit, split_keys = decode_splits(b, hkv, m * page, _sm_count(q.device.index))
@@ -258,11 +342,13 @@ def paged_attention(
     paged_attention.launches += 1
     if nsplit > 1:
         paged_attention.merge_launches += 1
+    paged_attention.last_splits = (nsplit, split_keys)
     return out
 
 
 paged_attention.launches = 0
 paged_attention.merge_launches = 0
+paged_attention.last_splits = None
 
 
 # ---------------------------------------------------------------------------

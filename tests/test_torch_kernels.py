@@ -849,3 +849,233 @@ def test_table_width_limit_follows_the_sources_smem_export(monkeypatch):
             paged_attention._check_smem("paged_attention", 0, 256, 16, 64, 1)
     finally:
         paged_attention._table_limit.cache_clear()
+
+
+# ------------------------------------ the bf16 ragged kernel (ragged_wg_kernel)
+def _ragged_plan(q, kp, tables):
+    """The host's plan for the bf16 ragged kernel on the H100, from shapes:
+    (slots per row tile, row tiles, splits, keys per split)."""
+    s, qmax, h, d = q.shape
+    hkv = kp.shape[2]
+    pos, tiles = paged_attention.ragged_row_tiles(h // hkv, qmax)
+    n, keys = paged_attention.ragged_splits(s, hkv, tiles, tables.shape[1] * kp.shape[1],
+                                            H100_SMS * paged_attention.ragged_pipes(d))
+    return pos, tiles, n, keys
+
+
+def _wgmma_ragged(q, kp, vp, tables, q_pos, kv_lens, softcap=0.0, splits=None):
+    """Test-only emulation of the bf16 ragged kernel
+    (csrc/ragged_paged_attention.cu, ragged_wg_kernel, then merge_kernel) as
+    it walks its jobs: per (sequence, row tile, split), for every KV head at
+    once, the row tile's 64 rows of (slot, head of the group) pairs, P slots
+    of G heads; the split's 64-key tiles up to min(kv_len, the tile's
+    largest q_pos + 1), each key read from the page its table entry names
+    (page 0 for a -1 entry or one past the table); masks only on a tile that
+    some real row keeps in part; the online softmax with fp32 max and sum, P
+    rounded to bf16 before P V, fp32 sums.  Unsplit, O / l with a safe l;
+    split, the partials (O, m, l) merged by their log-sum-exp, splits with
+    l = 0 skipped.  ``splits`` = (n, keys) overrides the host's choice.
+    Returns the bf16 output (S, Qmax, H, D) and l per split (n, S, Qmax, H),
+    0 where a row keeps none of the split's keys."""
+    s, qmax, h, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    group, m, kn = h // hkv, tables.shape[1], WG_KEYS
+    pos, tiles, n, keys = _ragged_plan(q, kp, tables)
+    if splits is not None:
+        n, keys = splits
+    qf = q.float().reshape(s, qmax, hkv, group, d)
+    kf, vf = kp.float(), vp.float()
+    o_part = torch.zeros((n, s, qmax, hkv, group, d))
+    m_part = torch.full((n, s, qmax, hkv, group), float("-inf"))
+    l_part = torch.zeros((n, s, qmax, hkv, group))
+    for b in range(s):
+        kv_len = min(int(kv_lens[b]), m * page)
+        for x in range(tiles):
+            slots = range(x * pos, min(qmax, (x + 1) * pos))
+            rows = [(j, g) for j in slots for g in range(group)]
+            qp = q_pos[b, list(slots)].long()
+            kv_end = min(kv_len, int(qp.max()) + 1)
+            hi_min = min(kv_len, int(qp.min()) + 1)
+            js, gs = (torch.tensor(v) for v in zip(*rows))
+            hi = torch.clamp(q_pos[b, js].long() + 1, max=kv_len)[:, None]
+            qw = qf[b, js, :, gs].permute(1, 0, 2)  # (Hkv, R, D)
+            for sp in range(n):
+                k_beg = sp * keys
+                k_end = min(kv_end, k_beg + keys)
+                if k_end <= k_beg:
+                    continue
+                mm = torch.full(qw.shape[:2], float("-inf"))
+                ll = torch.zeros(qw.shape[:2])
+                oo = torch.zeros(qw.shape)
+                for t in range(k_beg // kn, -(-k_end // kn)):
+                    key = torch.arange(t * kn, (t + 1) * kn)
+                    pi = key // page
+                    blk = torch.where(pi < m, tables[b, pi.clamp(max=m - 1)], 0).clamp(min=0)
+                    kt = kf[blk, key % page].permute(1, 0, 2)  # (Hkv, 64, D)
+                    vt = vf[blk, key % page].permute(1, 0, 2)
+                    sc = torch.einsum("hrd,hkd->hrk", qw, kt) * d**-0.5
+                    if softcap:
+                        sc = torch.tanh(sc / softcap) * softcap
+                    if (t + 1) * kn > hi_min:  # an edge tile: some real row keeps part
+                        sc = sc.masked_fill(key[None, None, :] >= hi[None], float("-inf"))
+                    m_new = torch.maximum(mm, sc.amax(-1))
+                    mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+                    alpha = torch.exp(mm - mu)
+                    p = torch.exp(sc - mu[..., None])
+                    ll = ll * alpha + p.sum(-1)
+                    oo = oo * alpha[..., None] + torch.einsum(
+                        "hrk,hkd->hrd", p.bfloat16().float(), vt)
+                    mm = m_new
+                o_part[sp, b, js, :, gs] = oo.permute(1, 0, 2)
+                m_part[sp, b, js, :, gs] = mm.permute(1, 0)
+                l_part[sp, b, js, :, gs] = ll.permute(1, 0)
+    if n == 1:
+        o, l = o_part[0], l_part[0]
+    else:  # merge_kernel
+        top = m_part.masked_fill(l_part == 0, float("-inf")).amax(0)
+        top = torch.where(top == float("-inf"), torch.zeros_like(top), top)
+        w = torch.where(l_part > 0, torch.exp(m_part - top), torch.zeros_like(m_part))
+        o = (w[..., None] * o_part).sum(0)
+        l = (w * l_part).sum(0)
+    out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], 0.0)
+    return out.reshape(s, qmax, h, d).bfloat16(), l_part.reshape(n, s, qmax, h)
+
+
+@pytest.mark.parametrize("case", sorted(CHIP_SMOKE.RAGGED_CASES))
+@pytest.mark.parametrize("shape", [(4, 4, 128), (14, 2, 64), (2, 2, 256)],
+                         ids=["G1", "G7", "D256"])
+def test_wgmma_ragged_stays_inside_bf16_tol(case, shape):
+    """The bf16 ragged kernel's arithmetic and job walk, split by the host's
+    choice for these shapes, against its plain version on chip_smoke.py's
+    phase-2 ragged batches at the Llama-2-7B (G = 1, D = 128, fewer heads),
+    Qwen2-0.5B (G = 7, D = 64: 9 slots a row tile) and gemma-7b (G = 1,
+    D = 256, fewer heads) groupings: inside the bf16 tolerance the card
+    holds it to, and the padded sequence's rows exactly 0."""
+    h, hkv, d = shape
+    q, kp, vp, tables, q_pos, kv_lens = _attention_case_cpu(
+        h, hkv, d, 81, **CHIP_SMOKE.RAGGED_CASES[case])
+    got, _ = _wgmma_ragged(q, kp, vp, tables, q_pos, kv_lens)
+    want = tco.ragged_paged_attention_ref(q, kp, vp, tables, q_pos, kv_lens)
+    print(f"plan={_ragged_plan(q, kp, tables)} "
+          f"max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+@pytest.mark.parametrize("case", sorted(CHIP_SMOKE.RAGGED_PAGE_CASES))
+@pytest.mark.parametrize("shape", [(4, 4, 128), (14, 2, 64), (2, 2, 256)],
+                         ids=["G1", "G7", "D256"])
+def test_wgmma_ragged_pages_stay_inside_bf16_tol(case, shape):
+    """The same on chip_smoke.py's bf16 batches at pages of 8, 24, 64 and
+    256 tokens (64-key tiles that take 8, 3 or 1 page, or a quarter of
+    one), two of them split by the host's choice."""
+    h, hkv, d = shape
+    q, kp, vp, tables, q_pos, kv_lens = _attention_case_cpu(
+        h, hkv, d, 84, **CHIP_SMOKE.RAGGED_PAGE_CASES[case])
+    assert kp.shape[1] == CHIP_SMOKE.RAGGED_PAGE_CASES[case]["page"]
+    got, _ = _wgmma_ragged(q, kp, vp, tables, q_pos, kv_lens)
+    want = tco.ragged_paged_attention_ref(q, kp, vp, tables, q_pos, kv_lens)
+    plan = _ragged_plan(q, kp, tables)
+    print(f"plan={plan} max_abs_err={(got.float() - want.float()).abs().max().item():.3e}")
+    assert (plan[2] > 1) == ("split" in case)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+@pytest.mark.parametrize("page,takes", [(8, True), (16, True), (24, True), (32, True),
+                                        (64, True), (128, True), (256, True), (4, False),
+                                        (12, False), (20, False)])
+def test_ragged_wrapper_refuses_pages_its_boxes_cannot_tile(page, takes):
+    """The bf16 ragged kernel reads K/V in boxes of gcd(page, 64) rows, which
+    the 8-row swizzle group needs at least 8 of: its wrapper refuses a bf16
+    page that is not a multiple of 8 with a ValueError before it looks at
+    the device, and passes every other page on to the device check (these
+    tensors lie on the CPU); fp32 takes any page."""
+    q, kp, vp, tables, q_pos, kv_lens = _attention_case_cpu(
+        4, 4, 64, 85, q_lens=(3, 0), kv_lens=(40, 0), qmax=3, page=page)
+    with pytest.raises(ValueError, match="CUDA" if takes else "multiple of 8"):
+        paged_attention.ragged_paged_attention(q, kp, vp, tables, q_pos, kv_lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.ragged_paged_attention(q.float(), kp.float(), vp.float(), tables,
+                                               q_pos, kv_lens)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_wgmma_ragged_qwen_long_decode_splits(softcap):
+    """chip_smoke's 2-4 k decode batch at Qwen2-0.5B's shape (14 / 2 heads of
+    64, G = 7), cut as the card cuts it: 16 sequences x 2 KV heads are 32
+    jobs for 264 pipelines, so 8 splits of 512 keys, each sequence's later
+    splits past its kv_len keep no key; against the plain version at the
+    bf16 tolerance."""
+    kw = dict(CHIP_SMOKE.LONG_CASES["decode"])
+    kw["kv_lens"] = kw["kv_lens"][::4]  # 4 of the 16 lengths keep the test short
+    kw["q_lens"] = kw["q_lens"][::4]
+    q, kp, vp, tables, q_pos, kv_lens = _attention_case_cpu(14, 2, 64, 82, **kw)
+    plan = _ragged_plan(q, kp, tables)
+    full = paged_attention.ragged_splits(16, 2, 1, 250 * 16, H100_SMS * 2)
+    assert full == (8, 512) and plan[2] > 1
+    got, ls = _wgmma_ragged(q, kp, vp, tables, q_pos, kv_lens, softcap, splits=full)
+    want = tco.ragged_paged_attention_ref(q, kp, vp, tables, q_pos, kv_lens,
+                                          logit_softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    for b, kv in enumerate(kv_lens.tolist()):  # splits at or past kv_len keep nothing
+        assert (ls[-(-kv // 512):, b] == 0).all() and (ls[:-(-kv // 512), b, 0] > 0).all()
+
+
+def test_wgmma_ragged_splits_that_keep_no_key_take_no_part():
+    """chip_smoke's 'splits that keep no key' batch at the Llama shape cut
+    into 4 splits of 320 keys: a sequence of 40 keys keeps none of splits
+    1-3 (l = 0, so the merge skips them and its rows equal its unsplit
+    output), the padded sequence keeps none of any and comes out exactly
+    0, and the 1000-key sequence keeps keys of all four."""
+    kw = CHIP_SMOKE.RAGGED_CASES["splits that keep no key"]
+    q, kp, vp, tables, q_pos, kv_lens = _attention_case_cpu(4, 4, 128, 83, **kw)
+    assert kv_lens.tolist() == [1000, 40, 0] and tables.shape[1] * 16 == 1040
+    got, ls = _wgmma_ragged(q, kp, vp, tables, q_pos, kv_lens, splits=(4, 320))
+    assert (ls[:, 0] > 0).all() and (ls[0, 1] > 0).all() and (ls[1:, 1] == 0).all()
+    assert (ls[:, 2] == 0).all() and torch.equal(got[2], torch.zeros_like(got[2]))
+    alone, _ = _wgmma_ragged(q, kp, vp, tables, q_pos, kv_lens, splits=(1, 1088))
+    assert torch.equal(got[1], alone[1])
+    want = tco.ragged_paged_attention_ref(q, kp, vp, tables, q_pos, kv_lens)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("seqs,kv_heads,row_tiles,max_keys,slots", [
+    (8, 32, 1, 256, 264),  # the fused serve's heaviest call at Llama-2-7B: one split
+    (16, 32, 1, 4000, 264),  # 2-4 k contexts at Llama-2-7B: 512 jobs fill the card
+    (16, 16, 1, 4000, 132),  # ... at gemma-7b's D = 256, one pipeline a block
+    (16, 2, 1, 4000, 264),  # 2-4 k decodes at Qwen2-0.5B: 32 jobs, 8 splits
+    (4, 2, 3, 1040, 264), (3, 32, 1, 1040, 264), (4, 8, 4, 1040, 264),  # phase 2's splits
+    (1, 1, 1, 100_000, 264), (1, 1, 1, 64, 264), (1, 1, 1, 1, 264), (5, 3, 2, 1000, 7),
+])
+def test_ragged_splits_cover_every_key_once(seqs, kv_heads, row_tiles, max_keys, slots):
+    """The host's split choice for the bf16 ragged kernel, a function of
+    shapes alone (its arguments are the call's shapes and the card's
+    pipelines): whole tiles of 64 keys, at least 256 keys a split where it
+    splits, no more jobs than the card's pipelines take in one round, and
+    every key of the table in exactly one split."""
+    n, keys = paged_attention.ragged_splits(seqs, kv_heads, row_tiles, max_keys, slots)
+    assert keys % 64 == 0 and keys >= 64
+    assert 1 <= n <= paged_attention.MAX_SPLITS
+    covered = np.zeros(max_keys, np.int64)
+    for i in range(n):
+        covered[i * keys:(i + 1) * keys] += 1
+    assert (covered == 1).all() and (n - 1) * keys < max_keys <= n * keys
+    if n > 1:
+        assert keys >= paged_attention.MIN_SPLIT_KEYS
+        assert seqs * kv_heads * row_tiles * n <= slots
+    if seqs * kv_heads * row_tiles * 2 > slots:
+        assert n == 1
+
+
+@pytest.mark.parametrize("group,qmax,want", [
+    (1, 1, (64, 1)), (1, 32, (64, 1)), (1, 65, (64, 2)), (7, 1, (9, 1)), (7, 20, (9, 3)),
+    (12, 20, (5, 4)), (64, 3, (1, 3)),
+])
+def test_ragged_row_tiles_pack_whole_groups(group, qmax, want):
+    """A row tile of the bf16 ragged kernel holds 64 // G whole query slots
+    of G heads (the q box's slots x heads), enough tiles to cover Qmax; a
+    group past 64 heads is refused."""
+    assert paged_attention.ragged_row_tiles(group, qmax) == want
+    with pytest.raises(ValueError, match="does not fit"):
+        paged_attention.ragged_row_tiles(65, qmax)
